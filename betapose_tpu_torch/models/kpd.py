@@ -1,0 +1,255 @@
+"""KPD, the key-point detector: FastPose (SE-ResNet50/101 + DUC) as an
+`nn.Module`.
+
+Counterpart of `betapose_tpu/models/kpd.py` and of the reference
+architecture (`KPD/src/models/FastPose.py:13-35`, `layers/SE_Resnet.py`,
+`layers/DUC.py`, `layers/SE_module.py`):
+
+  input [B, 320, 256, 3] (NHWC, normalized RGB)
+  -> conv7x7/2 + BN + ReLU -> maxpool3x3/2 pad 1       (64,  H/4)
+  -> layer1..4 bottlenecks (3, 4, 6|23, 3)             (2048, H/32)
+  -> pixel_shuffle(2) -> DUC(512->1024) -> DUC(256->512)
+  -> conv3x3 -> heatmaps [B, K, H/4, W/4]
+
+Bottlenecks: 1x1 -> 3x3(stride) -> 1x1(x4), with the SE gate (reduction 1)
+only on blocks that carry a downsample projection (`SE_Resnet.py:92-95`).
+Batch norm eps is 1e-5.
+
+The module names are the reference `state_dict` names, so the JAX
+package's `kpd.torch_state_dict_to_params(model.state_dict())` gives the
+JAX params, and `state_dict_from_jax` is its inverse.
+"""
+
+from __future__ import annotations
+
+import copy
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+BN_EPS = 1e-5
+RESNET_LAYERS = {"resnet50": [3, 4, 6, 3], "resnet101": [3, 4, 23, 3]}
+
+
+def _bn(c):
+    return nn.BatchNorm2d(c, eps=BN_EPS)
+
+
+class SELayer(nn.Module):
+    """Squeeze-excitation channel gate (`SE_module.py:4-19`, reduction 1).
+    The squeeze (a spatial mean) is taken in float32."""
+
+    def __init__(self, channel):
+        super().__init__()
+        self.fc = nn.Sequential(nn.Linear(channel, channel), nn.ReLU(),
+                                nn.Linear(channel, channel), nn.Sigmoid())
+
+    def forward(self, x):
+        s = x.float().mean(dim=(2, 3)).to(self.fc[0].weight.dtype)
+        return x * self.fc(s)[:, :, None, None].to(x.dtype)
+
+
+class Bottleneck(nn.Module):
+    def __init__(self, inplanes, planes, stride, downsample: bool):
+        super().__init__()
+        self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
+        self.bn1 = _bn(planes)
+        self.conv2 = nn.Conv2d(planes, planes, 3, stride, 1, bias=False)
+        self.bn2 = _bn(planes)
+        self.conv3 = nn.Conv2d(planes, planes * 4, 1, bias=False)
+        self.bn3 = _bn(planes * 4)
+        self.se = SELayer(planes * 4) if downsample else None
+        self.downsample = (nn.Sequential(
+            nn.Conv2d(inplanes, planes * 4, 1, stride, bias=False),
+            _bn(planes * 4)) if downsample else None)
+
+    def forward(self, x):
+        out = F.relu(self.bn1(self.conv1(x)))
+        out = F.relu(self.bn2(self.conv2(out)))
+        out = self.bn3(self.conv3(out))
+        if self.se is not None:
+            out = self.se(out)
+        residual = x if self.downsample is None else self.downsample(x)
+        return F.relu(out + residual)
+
+
+class SEResnet(nn.Module):
+    def __init__(self, arch: str):
+        super().__init__()
+        self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
+        self.bn1 = _bn(64)
+        inplanes = 64
+        for li, (planes, blocks) in enumerate(
+                zip([64, 128, 256, 512], RESNET_LAYERS[arch]), start=1):
+            stride = 1 if li == 1 else 2
+            layer = []
+            for bi in range(blocks):
+                s = stride if bi == 0 else 1
+                layer.append(Bottleneck(
+                    inplanes, planes, s, s != 1 or inplanes != planes * 4))
+                inplanes = planes * 4
+            setattr(self, f"layer{li}", nn.Sequential(*layer))
+
+    def forward(self, x):
+        x = F.relu(self.bn1(self.conv1(x)))
+        x = F.max_pool2d(x, 3, 2, 1)
+        return self.layer4(self.layer3(self.layer2(self.layer1(x))))
+
+
+class DUC(nn.Module):
+    """Dense upsampling convolution: conv3x3, BN, ReLU, pixel shuffle."""
+
+    def __init__(self, inplanes, planes):
+        super().__init__()
+        self.conv = nn.Conv2d(inplanes, planes, 3, padding=1, bias=False)
+        self.bn = _bn(planes)
+        self.pixel_shuffle = nn.PixelShuffle(2)
+
+    def forward(self, x):
+        return self.pixel_shuffle(F.relu(self.bn(self.conv(x))))
+
+
+class FastPose(nn.Module):
+    """forward(x): NHWC crops [B, H, W, 3] -> heatmaps [B, K, H/4, W/4]."""
+
+    def __init__(self, n_classes: int = 50, arch: str = "resnet101",
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        if arch not in RESNET_LAYERS:
+            raise ValueError(f"FastPose arch {arch!r}: resnet50 or resnet101")
+        self.arch = arch
+        self.n_classes = n_classes
+        self.preact = SEResnet(arch)
+        self.suffle1 = nn.PixelShuffle(2)
+        self.duc1 = DUC(512, 1024)
+        self.duc2 = DUC(256, 512)
+        self.conv_out = nn.Conv2d(128, n_classes, 3, padding=1)
+        init_params(self, generator)
+        self.eval()  # inference only: KPD training is ROADMAP slice 4
+
+    def forward(self, x):
+        x = self.preact(x.permute(0, 3, 1, 2))    # NHWC -> NCHW view
+        x = self.duc2(self.duc1(self.suffle1(x)))
+        return self.conv_out(x)
+
+
+@torch.no_grad()
+def init_params(model: FastPose, generator: torch.Generator | None = None):
+    """The JAX package's init, drawn from a torch.Generator: He-normal
+    convs, identity batch norms, uniform(+-1/sqrt(fan_in)) SE linears and
+    output conv."""
+    def uniform(t, bound):
+        t.copy_((torch.rand(t.shape, generator=generator) * 2 - 1) * bound)
+
+    for name, m in model.named_modules():
+        if isinstance(m, nn.Conv2d) and name != "conv_out":
+            fan_in = m.in_channels * m.kernel_size[0] * m.kernel_size[1]
+            m.weight.copy_(torch.randn(m.weight.shape, generator=generator)
+                           * np.sqrt(2.0 / fan_in))
+        elif isinstance(m, nn.BatchNorm2d):
+            m.reset_parameters()
+        elif isinstance(m, nn.Linear):
+            uniform(m.weight, 1.0 / np.sqrt(m.in_features))
+            uniform(m.bias, 1.0 / np.sqrt(m.in_features))
+    bound = 1.0 / np.sqrt(128 * 9)
+    uniform(model.conv_out.weight, bound)
+    uniform(model.conv_out.bias, bound)
+    return model
+
+
+def _conv_bn_pairs(model: FastPose):
+    """(parent module, conv attribute, bn attribute) for every conv+BN."""
+    pre = model.preact
+    pairs = [(pre, "conv1", "bn1")]
+    for li in range(1, 5):
+        for blk in getattr(pre, f"layer{li}"):
+            pairs += [(blk, f"conv{i}", f"bn{i}") for i in (1, 2, 3)]
+            if blk.downsample is not None:
+                pairs.append((blk.downsample, "0", "1"))
+    pairs += [(model.duc1, "conv", "bn"), (model.duc2, "conv", "bn")]
+    return pairs
+
+
+@torch.no_grad()
+def fold_bn(model: FastPose) -> FastPose:
+    """A copy of `model` with every batch norm folded into its conv: the
+    conv gets weight * gamma/sqrt(var+eps) and a bias, the BN becomes the
+    identity.  (The JAX `fold_bn` keeps identity BN dicts instead, to keep
+    its param tree's shape.)"""
+    folded = copy.deepcopy(model)
+    for parent, c, b in _conv_bn_pairs(folded):
+        conv, bn = getattr(parent, c), getattr(parent, b)
+        scale = bn.weight / torch.sqrt(bn.running_var + BN_EPS)
+        new = nn.Conv2d(conv.in_channels, conv.out_channels,
+                        conv.kernel_size, conv.stride, conv.padding,
+                        bias=True).to(conv.weight)
+        new.weight.copy_(conv.weight * scale[:, None, None, None])
+        new.bias.copy_(bn.bias - bn.running_mean * scale)
+        setattr(parent, c, new)
+        setattr(parent, b, nn.Identity())
+    return folded
+
+
+_BN_NAMES = {"scale": "weight", "bias": "bias", "mean": "running_mean",
+             "var": "running_var"}
+
+
+def state_dict_from_jax(params) -> dict:
+    """The inverse of the JAX package's `kpd.torch_state_dict_to_params`:
+    a FastPose `state_dict` (reference names, `preact.` prefix) from the
+    JAX param tree.  HWIO convs become OIHW, [in,out] linears [out,in], BN
+    scale/bias/mean/var weight/bias/running_mean/running_var."""
+    sd = {}
+
+    def put(name, a, transpose=None):
+        a = np.asarray(a, dtype=np.float32)
+        sd[name] = torch.from_numpy(
+            (a.transpose(transpose) if transpose else a).copy())
+
+    def conv(name, p):
+        put(name + ".weight", p["w"], (3, 2, 0, 1))
+
+    def bn(name, p):
+        for k, v in _BN_NAMES.items():
+            put(f"{name}.{v}", p[k])
+        sd[name + ".num_batches_tracked"] = torch.tensor(0)
+
+    conv("preact.conv1", params["conv1"])
+    bn("preact.bn1", params["bn1"])
+    for li in range(1, 5):
+        for bi, blk in enumerate(params[f"layer{li}"]):
+            pre = f"preact.layer{li}.{bi}"
+            for i in (1, 2, 3):
+                conv(f"{pre}.conv{i}", blk[f"conv{i}"])
+                bn(f"{pre}.bn{i}", blk[f"bn{i}"])
+            if "downsample" in blk:
+                conv(f"{pre}.downsample.0", blk["downsample"]["conv"])
+                bn(f"{pre}.downsample.1", blk["downsample"]["bn"])
+            if "se" in blk:
+                for fc, idx in (("fc1", 0), ("fc2", 2)):
+                    put(f"{pre}.se.fc.{idx}.weight", blk["se"][fc]["w"],
+                        (1, 0))
+                    put(f"{pre}.se.fc.{idx}.bias", blk["se"][fc]["b"])
+    for d in ("duc1", "duc2"):
+        conv(f"{d}.conv", params[d]["conv"])
+        bn(f"{d}.bn", params[d]["bn"])
+    put("conv_out.weight", params["conv_out"]["w"], (3, 2, 0, 1))
+    put("conv_out.bias", params["conv_out"]["b"])
+    return sd
+
+
+def from_state_dict(state_dict, n_classes: int = 50,
+                    arch: str = "resnet101") -> FastPose:
+    """A FastPose loaded from a reference-named state_dict; 'module.' or
+    'model.' prefixes (DataParallel checkpoints) are stripped."""
+    sd = {}
+    for k, v in state_dict.items():
+        for pref in ("module.", "model."):
+            if k.startswith(pref):
+                k = k[len(pref):]
+        sd[k] = v
+    model = FastPose(n_classes, arch)
+    model.load_state_dict(sd)
+    return model

@@ -1,0 +1,344 @@
+"""YOLOv3 built from a darknet .cfg, as an `nn.Module`.
+
+Counterpart of `betapose_tpu/models/yolov3.py` for the v3 layer subset that
+YOLOv3 uses: convolutional (with optional batch norm, leaky or linear
+activation), shortcut, route, upsample and yolo.  Any other block type
+raises `NotImplementedError`: the rest of the darknet layer zoo waits for
+ROADMAP slice 5.
+
+- The public layout is the JAX package's: `Darknet.forward` takes NHWC
+  frames [B, reso, reso, 3] and returns decoded detections
+  [B, nBoxes, 5+nC].  Inside, the network runs NCHW (a `channels_last`
+  memory format on the card).
+- Detection decode matches `yolo/darknet.py:129-169`: bx = sigma(tx)+cx,
+  by = sigma(ty)+cy, bw = pw*exp(tw), bh = ph*exp(th), scaled by stride;
+  sigmoid objectness and classes; rows anchor-major, then grid row, then
+  grid column; heads concatenated in cfg order.  Decode runs in float32.
+- Weights IO speaks the darknet .weights byte format exactly (reference
+  `yolo/darknet.py:365-432`, writer `train_YOLO/src/parser.c:962-1019`):
+  int32 header [major, minor, revision] then `seen` (uint64 when
+  major*10+minor >= 2, else int32), then a float32 stream with, per conv
+  layer, [bn_bias, bn_scale, bn_mean, bn_var] or [conv_bias], then the
+  weights in OIHW order (torch's own layout).
+- `params_from_jax` loads the JAX package's per-layer param list (numpy,
+  HWIO weights) into the module: the bridge the tests use.
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+import io
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from betapose_tpu_torch.models.darknet_cfg import parse_cfg
+
+BN_EPS = 1e-5  # torch BatchNorm2d default, matches reference inference
+LEAKY_SLOPE = 0.1
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerSpec:
+    kind: str                   # conv | shortcut | route | upsample | yolo
+    out_channels: int
+    size: int = 0
+    stride: int = 0
+    pad: int = 0
+    batch_normalize: bool = False
+    activation: str = "linear"
+    in_channels: int = 0
+    from_idx: int = -1          # absolute layer index (shortcut)
+    route_idxs: tuple = ()      # absolute layer indices (route)
+    anchors: tuple = ()         # ((w,h),...) for this head (mask applied)
+    num_classes: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class NetworkSpec:
+    layers: tuple               # tuple[LayerSpec]
+    cache_idxs: frozenset       # layer outputs needed later
+    net_info: dict              # [net] block options (may be empty)
+
+    @property
+    def yolo_idxs(self):
+        return tuple(i for i, l in enumerate(self.layers) if l.kind == "yolo")
+
+
+_CFG_ALIASES = {"conv": "convolutional", "network": "net"}
+
+
+def build_spec(cfg) -> NetworkSpec:
+    """cfg: path or cfg text.  Returns the static network spec."""
+    blocks = [dict(b, type=_CFG_ALIASES.get(b["type"], b["type"]))
+              for b in parse_cfg(cfg)]
+    net_info = {}
+    if blocks and blocks[0]["type"] == "net":
+        net_info = blocks[0]
+        blocks = blocks[1:]
+    out_channels = [int(net_info.get("channels", 3))]
+    layers, needed = [], set()
+    for i, b in enumerate(blocks):
+        t = b["type"]
+        cin = out_channels[-1]
+        if t == "convolutional":
+            size = int(b["size"])
+            layers.append(LayerSpec(
+                "conv", int(b["filters"]), size=size, stride=int(b["stride"]),
+                pad=(size - 1) // 2 if int(b.get("pad", 0)) else 0,
+                batch_normalize=int(b.get("batch_normalize", 0)) != 0,
+                activation=b.get("activation", "linear"), in_channels=cin))
+            if layers[-1].activation not in ("leaky", "linear"):
+                raise NotImplementedError(
+                    f"activation {layers[-1].activation!r}: the port runs "
+                    "leaky and linear only (other darknet activations are "
+                    "ROADMAP slice 5)")
+        elif t == "shortcut":
+            frm = int(b["from"])
+            abs_from = i + frm if frm < 0 else frm
+            needed.update((abs_from, i - 1))
+            layers.append(LayerSpec("shortcut", cin, from_idx=abs_from))
+        elif t == "route":
+            idxs = [int(x) for x in str(b["layers"]).split(",")]
+            abs_idxs = tuple(i + x if x < 0 else x for x in idxs)
+            needed.update(abs_idxs)
+            layers.append(LayerSpec(
+                "route", sum(out_channels[a + 1] for a in abs_idxs),
+                route_idxs=abs_idxs))
+        elif t == "upsample":
+            layers.append(LayerSpec("upsample", cin, stride=int(b["stride"])))
+        elif t == "yolo":
+            mask = [int(x) for x in b["mask"].split(",")]
+            flat = [int(float(x))
+                    for x in b["anchors"].replace(" ", "").split(",")]
+            pairs = [(flat[j], flat[j + 1]) for j in range(0, len(flat), 2)]
+            needed.add(i - 1)  # the head passes its input through
+            layers.append(LayerSpec(
+                "yolo", cin, anchors=tuple(pairs[m] for m in mask),
+                num_classes=int(b["classes"])))
+        else:
+            raise NotImplementedError(
+                f"darknet block [{t}]: the port builds convolutional, "
+                "shortcut, route, upsample and yolo only (the other layer "
+                "kinds are ROADMAP slice 5)")
+        out_channels.append(layers[-1].out_channels)
+    return NetworkSpec(tuple(layers), frozenset(needed), net_info)
+
+
+class ConvLayer(nn.Module):
+    """darknet [convolutional]: conv, batch norm or bias, activation."""
+
+    def __init__(self, l: LayerSpec):
+        super().__init__()
+        self.activation = l.activation
+        self.conv = nn.Conv2d(l.in_channels, l.out_channels, l.size,
+                              l.stride, l.pad, bias=not l.batch_normalize)
+        self.bn = (nn.BatchNorm2d(l.out_channels, eps=BN_EPS)
+                   if l.batch_normalize else None)
+
+    def fold(self):
+        """Fold the batch norm into the conv weight and a conv bias."""
+        if self.bn is None:
+            return
+        bn, conv = self.bn, self.conv
+        scale = bn.weight / torch.sqrt(bn.running_var + BN_EPS)
+        folded = nn.Conv2d(conv.in_channels, conv.out_channels,
+                           conv.kernel_size, conv.stride, conv.padding,
+                           bias=True).to(conv.weight)
+        with torch.no_grad():
+            folded.weight.copy_(conv.weight * scale[:, None, None, None])
+            folded.bias.copy_(bn.bias - bn.running_mean * scale)
+        self.conv, self.bn = folded, None
+
+    def forward(self, x):
+        y = self.conv(x)
+        if self.bn is not None:
+            y = self.bn(y)
+        if self.activation == "leaky":
+            y = F.leaky_relu(y, LEAKY_SLOPE)
+        return y
+
+
+def decode_head(x_nhwc, anchors, num_classes, reso):
+    """Decode one yolo head's raw output [B, gs, gs, nA*(5+nC)] to
+    [B, nA*gs*gs, 5+nC]: (cx, cy, w, h) in input pixels, sigmoid(obj),
+    sigmoid(class...).  Rows: anchor-major, then grid row, grid col."""
+    b, gs, _, _ = x_nhwc.shape
+    na = len(anchors)
+    attrs = 5 + num_classes
+    stride = reso // gs
+    x = x_nhwc.reshape(b, gs, gs, na, attrs).permute(0, 3, 1, 2, 4).float()
+    grid = torch.arange(gs, dtype=torch.float32, device=x.device)
+    cx = grid[None, None, None, :]
+    cy = grid[None, None, :, None]
+    anc = torch.tensor(anchors, dtype=torch.float32, device=x.device) / stride
+    aw = anc[:, 0][None, :, None, None]
+    ah = anc[:, 1][None, :, None, None]
+    out = torch.cat([
+        ((torch.sigmoid(x[..., 0]) + cx) * stride)[..., None],
+        ((torch.sigmoid(x[..., 1]) + cy) * stride)[..., None],
+        (torch.exp(x[..., 2]) * aw * stride)[..., None],
+        (torch.exp(x[..., 3]) * ah * stride)[..., None],
+        torch.sigmoid(x[..., 4:])], dim=-1)
+    return out.reshape(b, na * gs * gs, attrs)
+
+
+class Darknet(nn.Module):
+    """The network of a `NetworkSpec`; the reference's `Darknet(cfg, reso)`
+    (`yolo/darknet.py:319-363`).  `forward(x)` takes NHWC [B, reso, reso,
+    3] and returns the decoded detections [B, nBoxes, 5+nC] in float32."""
+
+    def __init__(self, spec: NetworkSpec, reso: int = 416,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.spec = spec
+        self.reso = int(reso)
+        self.layers = nn.ModuleList(
+            ConvLayer(l) if l.kind == "conv" else nn.Identity()
+            for l in spec.layers)
+        init_params(self, generator)
+        self.eval()  # inference only: YOLO training is ROADMAP slice 5
+
+    def forward(self, x):
+        x = x.permute(0, 3, 1, 2)                 # NHWC -> NCHW view
+        cache, decoded = {}, []
+        for i, (l, mod) in enumerate(zip(self.spec.layers, self.layers)):
+            if l.kind == "conv":
+                x = mod(x)
+            elif l.kind == "shortcut":
+                x = cache[i - 1] + cache[l.from_idx]
+            elif l.kind == "route":
+                x = (cache[l.route_idxs[0]] if len(l.route_idxs) == 1 else
+                     torch.cat([cache[a] for a in l.route_idxs], dim=1))
+            elif l.kind == "upsample":
+                x = F.interpolate(x, scale_factor=l.stride, mode="nearest")
+            elif l.kind == "yolo":
+                decoded.append(decode_head(x.permute(0, 2, 3, 1), l.anchors,
+                                           l.num_classes, self.reso))
+                x = cache[i - 1]
+            if i in self.spec.cache_idxs:
+                cache[i] = x
+        return torch.cat(decoded, dim=1)
+
+
+def conv_layers(model: Darknet):
+    return [(l, m) for l, m in zip(model.spec.layers, model.layers)
+            if l.kind == "conv"]
+
+
+@torch.no_grad()
+def init_params(model: Darknet, generator: torch.Generator | None = None):
+    """He-normal conv weights (std sqrt(2/fan_in)), zero biases, identity
+    batch norm: the JAX package's init, drawn from a torch.Generator."""
+    for l, m in conv_layers(model):
+        w = torch.randn(m.conv.weight.shape, generator=generator,
+                        dtype=torch.float32)
+        m.conv.weight.copy_(w * np.sqrt(2.0 / (l.in_channels * l.size ** 2)))
+        if m.conv.bias is not None:
+            m.conv.bias.zero_()
+        if m.bn is not None:
+            m.bn.reset_parameters()
+    return model
+
+
+def fold_bn(model: Darknet) -> Darknet:
+    """A copy of `model` with every batch norm folded into its conv."""
+    folded = copy.deepcopy(model)
+    for _, m in conv_layers(folded):
+        m.fold()
+    return folded
+
+
+def _np(a):
+    return np.array(a, dtype=np.float32)
+
+
+@torch.no_grad()
+def params_from_jax(spec: NetworkSpec, layers, reso: int = 416) -> Darknet:
+    """A Darknet holding the JAX package's per-layer params (numpy or
+    arrays): conv {"w" HWIO, "b"} or {"w", "bn_scale", "bn_bias",
+    "bn_mean", "bn_var"}.  A batch-norm layer given as {"w", "b"} (the
+    output of the JAX `fold_bn`) becomes a folded layer here."""
+    model = Darknet(spec, reso)
+    for (l, m), p in zip(conv_layers(model),
+                         [p for l, p in zip(spec.layers, layers)
+                          if l.kind == "conv"]):
+        if m.bn is not None and "bn_scale" not in p:
+            m.fold()
+        m.conv.weight.copy_(torch.from_numpy(
+            _np(p["w"]).transpose(3, 2, 0, 1).copy()))
+        if m.bn is None:
+            m.conv.bias.copy_(torch.from_numpy(_np(p["b"])))
+        else:
+            m.bn.weight.copy_(torch.from_numpy(_np(p["bn_scale"])))
+            m.bn.bias.copy_(torch.from_numpy(_np(p["bn_bias"])))
+            m.bn.running_mean.copy_(torch.from_numpy(_np(p["bn_mean"])))
+            m.bn.running_var.copy_(torch.from_numpy(_np(p["bn_var"])))
+    return model
+
+
+@torch.no_grad()
+def load_darknet_weights(spec: NetworkSpec, path, reso: int = 416,
+                         allow_partial: bool = True,
+                         generator: torch.Generator | None = None):
+    """Read a darknet .weights file into a new Darknet.
+
+    allow_partial: darknet semantics; a truncated file (a pretrained
+    backbone such as darknet53.conv.74) fills the leading layers and leaves
+    the rest at their random init (`parser.c load_weights` stops at EOF).
+
+    Returns (model, header) with header = int64[4] [major, minor, revision,
+    seen] whatever the on-disk width of `seen`."""
+    with open(path, "rb") as f:
+        major, minor, revision = np.fromfile(f, dtype=np.int32, count=3)
+        if major * 10 + minor >= 2 and major < 1000 and minor < 1000:
+            seen = int(np.fromfile(f, dtype=np.uint64, count=1)[0])
+        else:
+            seen = int(np.fromfile(f, dtype=np.int32, count=1)[0])
+        header = np.array([major, minor, revision, seen], dtype=np.int64)
+        stream = np.fromfile(f, dtype=np.float32)
+    model = Darknet(spec, reso, generator)
+    ptr = 0
+    for l, m in conv_layers(model):
+        names = (("bias", "weight", "running_mean", "running_var")
+                 if m.bn is not None else ("bias",))
+        need = len(names) * l.out_channels + m.conv.weight.numel()
+        if ptr + need > len(stream):
+            if allow_partial:
+                break
+            raise ValueError(f"weights file too short at offset {ptr}")
+        target = m.bn if m.bn is not None else m.conv
+        for name in names:
+            getattr(target, name).copy_(torch.from_numpy(
+                stream[ptr:ptr + l.out_channels].copy()))
+            ptr += l.out_channels
+        n = m.conv.weight.numel()
+        m.conv.weight.copy_(torch.from_numpy(
+            stream[ptr:ptr + n].reshape(m.conv.weight.shape).copy()))
+        ptr += n
+    return model, header
+
+
+def save_darknet_weights(model: Darknet, path, seen: int = 0):
+    """Write the model in the darknet .weights layout: int32 header
+    [0, 1, 0, seen] (int32 `seen`, as the JAX writer and the vendored
+    darknet fork emit), then per conv layer the BN arrays or the bias, then
+    the OIHW weights."""
+    buf = io.BytesIO()
+    buf.write(np.array([0, 1, 0, seen], dtype=np.int32).tobytes())
+
+    def w32(t):
+        buf.write(t.detach().float().cpu().numpy().tobytes())
+
+    for _, m in conv_layers(model):
+        if m.bn is not None:
+            for name in ("bias", "weight", "running_mean", "running_var"):
+                w32(getattr(m.bn, name))
+        else:
+            w32(m.conv.bias)
+        w32(m.conv.weight.contiguous())
+    with open(path, "wb") as f:
+        f.write(buf.getvalue())

@@ -1,0 +1,89 @@
+"""The port's evaluation CLI end to end on the CPU (`--device cpu`), on a
+synthetic SIXD tree, the way tests/test_e2e_eval.py::TestEvalCLI drives the
+JAX CLI: random weights (smoke mode), so the contract is checked, not the
+accuracy."""
+
+import json
+import os
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+pytest.importorskip("cv2")
+
+from tests._synth import make_synthetic_sixd  # noqa: E402
+from betapose_tpu_torch.data import loader as port_loader  # noqa: E402
+from betapose_tpu_torch.eval import betapose_evaluate  # noqa: E402
+from betapose_tpu_torch.models import yolov3 as yolo_mod  # noqa: E402
+from betapose_tpu_torch.models.darknet_cfg import make_yolov3_cfg  # noqa: E402
+
+
+def _argv(sixd, out, *extra):
+    return ["--indir", os.path.join(sixd, "test", "01", "rgb"),
+            "--outdir", out, "--obj_id", "1", "--sixd_base", sixd,
+            "--detbatch", "2", "--inp_dim", "64", "--nClasses", "50",
+            "--netType", "resnet50", "--inputResH", "64", "--inputResW", "32",
+            "--outputResH", "16", "--outputResW", "8", "--conf", "0",
+            "--device", "cpu", *extra]
+
+
+def _zero_yolo_weights(path):
+    """A YOLOv3 .weights file with every conv weight and bias zero: each
+    row decodes to its anchor box at objectness 0.5, so the first row wins
+    and every frame gets the same well-formed box.  (He-init random weights
+    saturate through the 75 convs and give degenerate boxes.)"""
+    spec = yolo_mod.build_spec(make_yolov3_cfg(num_classes=1, width=64,
+                                               height=64))
+    model = yolo_mod.Darknet(spec, 64)
+    with torch.no_grad():
+        for _, m in yolo_mod.conv_layers(model):
+            m.conv.weight.zero_()
+            if m.conv.bias is not None:
+                m.conv.bias.zero_()
+    yolo_mod.save_darknet_weights(model, path)
+    return str(path)
+
+
+def test_eval_cli_writes_results_and_metrics(tmp_path):
+    sixd = make_synthetic_sixd(tmp_path, n_frames=3)
+    out = str(tmp_path / "out")
+    weights = _zero_yolo_weights(tmp_path / "zero.weights")
+    stats = betapose_evaluate.main(_argv(sixd, out, "--profile",
+                                         "--yolo_weights", weights))
+    data = json.load(open(os.path.join(out, "Betapose-results.json")))
+    assert isinstance(data, list) and len(data) == 3
+    for d in data:
+        assert len(d["cam_R"]) == 9 and len(d["cam_t"]) == 3
+        assert len(d["keypoints"]) == 3 * 50
+        assert np.isfinite(d["cam_R"] + d["cam_t"] + d["keypoints"]).all()
+        assert np.isfinite(d["score"])
+    assert set(stats) >= {"mean_add", "mean_2d_acc", "mean_iou", "fps"}
+
+
+def test_eval_cli_refuses_what_it_cannot_run(tmp_path):
+    sixd = make_synthetic_sixd(tmp_path, n_frames=1)
+    out = str(tmp_path / "out")
+    with pytest.raises(FileNotFoundError):
+        betapose_evaluate.main(_argv(sixd, out, "--yolo_weights",
+                                     str(tmp_path / "missing.weights")))
+    with pytest.raises(NotImplementedError):
+        betapose_evaluate.main(_argv(sixd, out, "--det_capacity", "3"))
+    with pytest.raises(NotImplementedError):
+        betapose_evaluate.main(_argv(sixd, out, "--host_loader", "native"))
+
+
+def test_loader_threads_and_procs_give_the_same_padded_batches(tmp_path):
+    sixd = make_synthetic_sixd(tmp_path, n_frames=5, img_shape=(24, 32))
+    paths = port_loader.list_images(os.path.join(sixd, "test", "01", "rgb"))
+    got = {}
+    for mode in ("threads", "procs"):
+        loader = port_loader.make_loader(paths, 2, mode=mode, workers=2)
+        got[mode] = list(loader)
+        assert loader.batch_sizes == [2, 2, 1]
+    assert [b.shape for b in got["threads"]] == [(2, 24, 32, 3)] * 3
+    for a, b in zip(got["threads"], got["procs"]):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(got["threads"][2][1],
+                                  got["threads"][2][0])   # padded tail
