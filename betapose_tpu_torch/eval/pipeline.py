@@ -12,9 +12,10 @@ step is the three stages called in turn; nothing is compiled.  The conv
 path runs in `cfg.compute_dtype` (bf16 on the card, with f32 accumulation);
 box and crop coordinates, decode and PnP run in float32.
 
-Options outside this slice raise `NotImplementedError` naming their ROADMAP
-slice: `det_capacity > 1` and `host_pose_nms` (slice 2), `net_type="hgPRM"`
-(slice 3) and `s2d_stem=True` (an exact rewrite of the stem, not ported).
+`s2d_stem=True` runs YOLO's first two layers through the exact
+space-to-depth rewrite (`models/stem_s2d.py`).  Options outside this slice
+raise `NotImplementedError` naming their ROADMAP slice: `det_capacity > 1`
+and `host_pose_nms` (slice 2) and `net_type="hgPRM"` (slice 3).
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import numpy as np
 import torch
 
 from betapose_tpu_torch.core.device import resolve_device, synchronize
+from betapose_tpu_torch.models import stem_s2d
 from betapose_tpu_torch.ops import boxes as box_ops
 from betapose_tpu_torch.ops import heatmap as hm_ops
 from betapose_tpu_torch.ops import image as image_ops
@@ -47,7 +49,10 @@ class PipelineConfig:
     preproc: str = "stretch"        # 'stretch' | 'letterbox'
     target_class: int = 0
     compute_dtype: str = "bfloat16"  # conv-path dtype
-    s2d_stem: bool = False          # exact space-to-depth stem: not ported
+    s2d_stem: bool = False          # exact space-to-depth YOLO stem; the
+    #                               # JAX default is True (chosen on the
+    #                               # TPU); the card's default waits for
+    #                               # chip_smoke.py's timing of both stems
     pnp_iters: int = 12             # LM refinement steps
     pnp_robust_rounds: int = 0      # >0: trimmed-IRLS robust PnP (extension)
     pnp_score_power: float = 0.0    # >0: weight PnP points by
@@ -73,10 +78,6 @@ def check_config(cfg: PipelineConfig) -> None:
         raise NotImplementedError("net_type='hgPRM' is ROADMAP slice 3")
     if cfg.net_type not in ("resnet50", "resnet101"):
         raise ValueError(f"unsupported net_type {cfg.net_type!r}")
-    if cfg.s2d_stem:
-        raise NotImplementedError(
-            "s2d_stem=True: the space-to-depth stem rewrite is not ported "
-            "(it is exact; the port runs the plain stem)")
     if cfg.preproc not in ("stretch", "letterbox"):
         raise ValueError(f"unknown preproc {cfg.preproc!r}")
     if cfg.compute_dtype not in _DTYPES:
@@ -102,8 +103,9 @@ def make_det_stage(cfg: PipelineConfig):
             yolo_in = image_ops.letterbox(
                 imgs * 255.0, cfg.reso, cfg.reso).to(cdtype) / 255.0
             rescale = box_ops.unletterbox_boxes
-        best = box_ops.best_box(yolo(yolo_in), cfg.confidence,
-                                cfg.target_class)
+        dets = (stem_s2d.forward_with_s2d_stem(yolo, yolo_in)
+                if cfg.s2d_stem else yolo(yolo_in))
+        best = box_ops.best_box(dets, cfg.confidence, cfg.target_class)
         boxes = rescale(best["boxes"], w0, h0, cfg.reso)
         crops, pt1, pt2 = image_ops.crop_from_dets(
             imgs_c, boxes, cfg.inp_h, cfg.inp_w)

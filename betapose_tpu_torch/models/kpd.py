@@ -29,6 +29,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from betapose_tpu_torch.models import stem_s2d
+
 BN_EPS = 1e-5
 RESNET_LAYERS = {"resnet50": [3, 4, 6, 3], "resnet101": [3, 4, 23, 3]}
 
@@ -92,8 +94,12 @@ class SEResnet(nn.Module):
                 inplanes = planes * 4
             setattr(self, f"layer{li}", nn.Sequential(*layer))
 
-    def forward(self, x):
-        x = F.relu(self.bn1(self.conv1(x)))
+    def forward(self, x, s2d_stem=False):
+        if s2d_stem:
+            y1 = stem_s2d.fastpose_stem_s2d(self.conv1, x)
+        else:
+            y1 = self.conv1(x)
+        x = F.relu(self.bn1(y1))
         x = F.max_pool2d(x, 3, 2, 1)
         return self.layer4(self.layer3(self.layer2(self.layer1(x))))
 
@@ -112,7 +118,11 @@ class DUC(nn.Module):
 
 
 class FastPose(nn.Module):
-    """forward(x): NHWC crops [B, H, W, 3] -> heatmaps [B, K, H/4, W/4]."""
+    """forward(x): NHWC crops [B, H, W, 3] -> heatmaps [B, K, H/4, W/4].
+
+    forward(x, s2d_stem=True) computes the 7x7/2 stem conv exactly through
+    space-to-depth (`models/stem_s2d.py`), as the JAX `kpd.forward` does
+    with `s2d_stem=True`; H and W must then be even."""
 
     def __init__(self, n_classes: int = 50, arch: str = "resnet101",
                  generator: torch.Generator | None = None):
@@ -129,8 +139,8 @@ class FastPose(nn.Module):
         init_params(self, generator)
         self.eval()  # inference only: KPD training is ROADMAP slice 4
 
-    def forward(self, x):
-        x = self.preact(x.permute(0, 3, 1, 2))    # NHWC -> NCHW view
+    def forward(self, x, s2d_stem=False):
+        x = self.preact(x.permute(0, 3, 1, 2), s2d_stem)  # NHWC -> NCHW
         x = self.duc2(self.duc1(self.suffle1(x)))
         return self.conv_out(x)
 

@@ -202,10 +202,19 @@ class Darknet(nn.Module):
         init_params(self, generator)
         self.eval()  # inference only: YOLO training is ROADMAP slice 5
 
-    def forward(self, x):
-        x = x.permute(0, 3, 1, 2)                 # NHWC -> NCHW view
-        cache, decoded = {}, []
+    def forward(self, x, decode=True):
+        """decode=False returns the raw heads, NHWC [B, gs, gs, nA*(5+nC)]
+        each, as the JAX `forward(..., decode=False)` does."""
+        return self.run_layers(x.permute(0, 3, 1, 2), 0, {}, decode)
+
+    def run_layers(self, x, start, cache, decode=True):
+        """Layers `start`.. on the NCHW activation x, with `cache` holding
+        the outputs of earlier layers that later ones read (the s2d stem
+        enters at layer 2)."""
+        decoded = []
         for i, (l, mod) in enumerate(zip(self.spec.layers, self.layers)):
+            if i < start:
+                continue
             if l.kind == "conv":
                 x = mod(x)
             elif l.kind == "shortcut":
@@ -216,12 +225,13 @@ class Darknet(nn.Module):
             elif l.kind == "upsample":
                 x = F.interpolate(x, scale_factor=l.stride, mode="nearest")
             elif l.kind == "yolo":
-                decoded.append(decode_head(x.permute(0, 2, 3, 1), l.anchors,
-                                           l.num_classes, self.reso))
+                head = x.permute(0, 2, 3, 1)
+                decoded.append(decode_head(head, l.anchors, l.num_classes,
+                                           self.reso) if decode else head)
                 x = cache[i - 1]
             if i in self.spec.cache_idxs:
                 cache[i] = x
-        return torch.cat(decoded, dim=1)
+        return torch.cat(decoded, dim=1) if decode else decoded
 
 
 def conv_layers(model: Darknet):

@@ -24,7 +24,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 
 # every kernel source of the package; build_all() compiles these
-SOURCES = ("heatmap_decode.cu",)
+SOURCES = ("heatmap_decode.cu", "bottleneck_chain.cu")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -9,8 +9,10 @@ result line):
 1. The card (name and power limit from nvidia-smi) and the torch version;
    every CUDA kernel of the package is built from `betapose_tpu_torch/csrc/`
    (one nvcc per source, all started together).
-2. Each kernel against its plain PyTorch version on the card, at the main
-   path's shapes, on edge cases: the outputs must be bitwise equal.
+2. Each kernel against its plain PyTorch version on the card, at its
+   path's shapes and on edge cases: `decode_peaks` bitwise equal;
+   `bottleneck_chain` (bf16) within max|k-p| / max|p| <= 2e-2, the JAX
+   package's bf16 bar.
 3. The main path at full width: YOLOv3-416 (1 class) -> FastPose
    SE-ResNet101 (50 keypoints) -> peak decode -> PnP through
    `PosePipeline` at batch 8 of 480x640 frames, bf16 convs, seeded random
@@ -21,27 +23,49 @@ result line):
 4. Small-input reference checks: the float32 pipeline on the card against
    the same pipeline on the CPU, and PnP on the card recovering planted
    poses.
+5. The probe path, the second slice's: `tools/probe_vmem_chain` at batch
+   96 over the three bottleneck shapes, with the launch counts set to 0
+   before and read after; `bottleneck_chain` must have launched once per
+   kernel call the probe made (the probe itself raises when the kernel and
+   the cuDNN chain disagree; phase 2 is the check against the plain
+   version).  Then the kernel, its plain version and the cuDNN chain are
+   timed at each shape.
+6. The s2d stem: the float32 det stage at reso 416 with and without
+   `s2d_stem` on the same frames (raw heads within the JAX test's
+   statistical bar, equal det_valid, boxes within 1 px), then both stems
+   timed in bf16 at batch 8.
+7. `tools/profile_pipeline`, `tools/probe_conv_mfu` and
+   `tools/probe_s2d_stage` once each at reduced iterations.
 
-Then a `{"kernels": [...]}` JSON line (per kernel: launches on the main
-path, max abs error against the plain version, its time, the plain
-version's time and the memory/compute bound, in ms), the card line again,
-and as the last line `{"ok": true, "device": {...}}`.  --profile-out writes
-a torch.profiler table of two main-path steps (device time by kernel).
+Then a `{"kernels": [...]}` JSON line (per kernel: launches on its path,
+max abs error against the plain version, its time, the plain version's
+time, the memory/compute bound and the library yardstick, in ms), the
+card line again, and as the last line `{"ok": true, "device": {...}}`.
+--profile-out writes a torch.profiler table of two main-path steps (device
+time by kernel).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-import statistics
 import subprocess
 import sys
 import time
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, f32 non-tensor
-# FLOP/s
+# FLOP/s, dense bf16 tensor-core FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+BF16_FLOPS = 989e12
+
+# bottleneck_chain cases (B, H, W, Cin, Cm): the probe's three shapes at
+# batch 96, then edge cases (the JAX test shapes, B=1, H=W=1, H=1)
+CHAIN_PROBE = [(96, 13, 13, 1024, 512), (96, 10, 8, 2048, 512),
+               (96, 20, 16, 1024, 256)]
+CHAIN_EDGES = [(2, 5, 4, 16, 8), (4, 3, 3, 8, 16), (1, 13, 13, 1024, 512),
+               (3, 1, 1, 64, 32), (2, 1, 13, 256, 128), (2, 7, 9, 40, 24)]
+CHAIN_BAR = 2e-2
 
 CAM_K = [[572.4114, 0.0, 325.2611],
          [0.0, 573.57043, 242.04899],
@@ -66,19 +90,6 @@ def card_line():
     ).stdout.strip().splitlines()[0]
 
 
-def _median_ms(torch, run, reps, rounds):
-    per = []
-    for _ in range(rounds):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        run()
-        end.record()
-        end.synchronize()
-        per.append(start.elapsed_time(end) / reps)
-    return statistics.median(per)
-
-
 def time_ms(torch, fn, reps=50, rounds=7):
     """(device ms, eager ms) of one call.  Device: `reps` calls captured in
     a CUDA graph and replayed between CUDA events, which takes the host's
@@ -94,12 +105,9 @@ def time_ms(torch, fn, reps=50, rounds=7):
             fn()
     graph.replay()
     torch.cuda.synchronize()
-
-    def eager():
-        for _ in range(reps):
-            fn()
-    return (_median_ms(torch, graph.replay, reps, rounds),
-            _median_ms(torch, eager, reps, rounds))
+    from betapose_tpu_torch.core.profiling import chain_ms
+    return (chain_ms(graph.replay, "cuda", k=1, rounds=rounds, warmup=0)
+            / reps, chain_ms(fn, "cuda", k=reps, rounds=rounds, warmup=0))
 
 
 def decode_cases(np, shape):
@@ -128,25 +136,15 @@ def decode_cases(np, shape):
     return cases
 
 
-def calibrate_yolo_heads(torch, yolo, spec, frames_dev, reso):
+def calibrate_yolo_heads(torch, yolo, frames_dev, reso):
     """Scale each head conv so its raw output has unit spread on these
     frames.  A random He-initialized YOLOv3 drives its heads to ~1e4, where
     exp(tw) overflows and every box is infinite; trained weights do not."""
     from betapose_tpu_torch.ops.image import resize_bilinear_matmul
-    outs = []
-    hooks = [yolo.layers[i - 1].register_forward_hook(
-        lambda mod, inp, out: outs.append(out.float().std().item()))
-        for i in spec.yolo_idxs]
+    from betapose_tpu_torch.tools.profile_pipeline import calibrate_heads
     with torch.inference_mode():
         x = resize_bilinear_matmul(frames_dev.float() / 255.0, reso, reso)
-        yolo(x.to(next(yolo.parameters()).dtype))
-    for h in hooks:
-        h.remove()
-    with torch.no_grad():
-        for i, s in zip(spec.yolo_idxs, outs):
-            conv = yolo.layers[i - 1].conv
-            conv.weight.mul_(1.0 / s)
-            conv.bias.mul_(1.0 / s)
+    calibrate_heads(yolo, x.to(next(yolo.parameters()).dtype))
 
 
 def build_models(torch, reso, n_kp, arch, frames, device):
@@ -156,8 +154,8 @@ def build_models(torch, reso, n_kp, arch, frames, device):
     spec = yolo_mod.build_spec(make_yolov3_cfg(1, reso, reso))
     yolo = yolo_mod.fold_bn(yolo_mod.Darknet(
         spec, reso, torch.Generator().manual_seed(0))).to(device)
-    calibrate_yolo_heads(torch, yolo, spec, torch.as_tensor(frames)
-                         .to(device), reso)
+    calibrate_yolo_heads(torch, yolo, torch.as_tensor(frames).to(device),
+                         reso)
     kpd = kpd_mod.fold_bn(kpd_mod.FastPose(
         n_kp, arch, torch.Generator().manual_seed(1)))
     return yolo, kpd
@@ -177,6 +175,29 @@ def phase_kernels(torch, np, kernels):
         worst = max(worst, (out - ref).abs().max().item())
         print(f"decode_peaks == plain on {name} {list(shape)}: bitwise equal")
     kernels["decode_peaks"]["max_abs_err"] = worst
+
+
+def phase_chain_kernel(torch, kernels):
+    """The kernel against its plain version on the probe's inputs (x * 0.1,
+    He-scaled weights: the chain's term is as large as the residual)."""
+    from betapose_tpu_torch.ops.kernels import bottleneck_chain as bc
+    from betapose_tpu_torch.tools.probe_vmem_chain import chain_inputs
+    worst = 0.0
+    for shape in CHAIN_PROBE + CHAIN_EDGES:
+        args = chain_inputs(*shape, "cuda")
+        out = bc.bottleneck_chain(*args)
+        torch.cuda.synchronize()
+        ref = bc.bottleneck_chain_plain(*args)
+        torch.cuda.synchronize()
+        diff = (out.float() - ref.float()).abs()
+        ratio = (diff.max() / ref.float().abs().max()).item()
+        share = (diff > 0).float().mean().item()
+        check(ratio <= CHAIN_BAR, f"bottleneck_chain differs from its plain "
+              f"version at {shape}: {ratio:.3g} > {CHAIN_BAR}")
+        worst = max(worst, diff.max().item())
+        print(f"bottleneck_chain vs plain at {list(shape)}: max|k-p|/max|p| "
+              f"{ratio:.3e}, {100 * share:.3f}% of elements differ")
+    kernels["bottleneck_chain"]["max_abs_err"] = worst
 
 
 def phase_main_path(torch, np, kernels, card, profile_out):
@@ -279,6 +300,133 @@ def phase_main_path(torch, np, kernels, card, profile_out):
               f"{device_us / 2e3:.2f} ms per step against {step_ms:.2f} ms "
               f"per unprofiled step ({100 * device_us / 2e3 / step_ms:.0f}%"
               f" busy) [{card}]")
+    return pipe, frames
+
+
+def phase_probe_path(torch, kernels, card):
+    """The probe path through its entry point, then the kernel's times."""
+    from betapose_tpu_torch.ops.kernels import bottleneck_chain as bc
+    from betapose_tpu_torch.ops.kernels import heatmap_decode as hd
+    from betapose_tpu_torch.tools import probe_vmem_chain as pvc
+
+    bc.bottleneck_chain.launches = 0
+    hd.decode_peaks.launches = 0
+    t0 = time.perf_counter()
+    rows = pvc.main(["--batch", "96", "--k", "5", "--rounds", "3"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = bc.bottleneck_chain.launches
+    calls = sum(r["kernel_calls"] for r in rows)
+    check(launches == calls and launches > 0,
+          f"bottleneck_chain launched {launches} times on the probe path, "
+          f"which made {calls} kernel calls")
+    print(f"probe path: {len(rows)} shapes in {wall:.1f} s, "
+          f"bottleneck_chain launched {launches} times ({calls} calls) "
+          f"[{card}]")
+
+    rec = kernels["bottleneck_chain"]
+    rec["launches"] = launches
+    per_shape = []
+    for shape in CHAIN_PROBE:
+        x, w1, w2, w3 = pvc.chain_inputs(*shape, "cuda")
+        convw = pvc.chain_conv_weights(w1, w2, w3)
+        k_ms, k_eager = time_ms(torch, lambda: bc.bottleneck_chain(
+            x, w1, w2, w3), reps=10, rounds=5)
+        p_ms, _ = time_ms(torch, lambda: bc.bottleneck_chain_plain(
+            x, w1, w2, w3), reps=10, rounds=5)
+        c_ms, _ = time_ms(torch, lambda: pvc.bottleneck_chain_cudnn(
+            x, *convw), reps=10, rounds=5)
+        flops = bc.chain_flops(*shape)
+        n_bytes = 2 * (2 * x.numel() + w1.numel() + w2.numel() + w3.numel())
+        t_ops, t_bytes = flops / BF16_FLOPS, n_bytes / HBM_BYTES_PER_S
+        per_shape.append({
+            "shape": "x".join(map(str, shape[:4])) + f"->cm{shape[4]}",
+            "ms": k_ms, "plain_ms": p_ms, "library_ms": c_ms,
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"})
+        print(f"bottleneck_chain {list(shape)}: device time kernel "
+              f"{k_ms:.4f} ms (eager {k_eager:.4f} ms), plain f32 "
+              f"{p_ms:.4f} ms, cuDNN chain {c_ms:.4f} ms; bound "
+              f"{per_shape[-1]['bound_ms']:.4f} ms "
+              f"({per_shape[-1]['bound_by']}: {flops / 1e9:.1f} GFLOP, "
+              f"{n_bytes / 1e6:.1f} MB); {flops / k_ms / 1e9:.1f} TFLOP/s "
+              f"= {100 * flops / k_ms / 1e9 / 989:.1f}% of 989 [{card}]")
+    # the line's own numbers are those of the first (largest) shape
+    rec.update({k: per_shape[0][k] for k in
+                ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
+    rec["shape"] = per_shape[0]["shape"]
+    rec["per_shape"] = per_shape
+
+
+def phase_s2d_stem(torch, np, pipe, frames, card):
+    """The s2d stem against the plain stem: float32 agreement on the card,
+    then both timed in bf16 on the main path's network."""
+    import dataclasses
+    from betapose_tpu_torch.core.profiling import chain_ms
+    from betapose_tpu_torch.eval.pipeline import make_det_stage
+    from betapose_tpu_torch.models import stem_s2d
+    from betapose_tpu_torch.models import yolov3 as yolo_mod
+    from betapose_tpu_torch.models.darknet_cfg import make_yolov3_cfg
+    from betapose_tpu_torch.ops.image import resize_bilinear_matmul
+
+    spec = yolo_mod.build_spec(make_yolov3_cfg(1, 416, 416))
+    yolo = yolo_mod.fold_bn(yolo_mod.Darknet(
+        spec, 416, torch.Generator().manual_seed(0))).cuda()
+    calibrate_yolo_heads(torch, yolo, torch.as_tensor(frames).cuda(), 416)
+    cfg32 = dataclasses.replace(pipe.cfg, compute_dtype="float32")
+    fdev = torch.as_tensor(frames[:4]).cuda()
+    with torch.inference_mode():
+        x = resize_bilinear_matmul(fdev.float() / 255.0, 416, 416)
+        plain = yolo(x, decode=False)
+        fast = stem_s2d.forward_with_s2d_stem(yolo, x, decode=False)
+        worst = 0.0
+        for a, b in zip(fast, plain):
+            bad = ((a - b).abs() > 1e-3 + 1e-2 * b.abs()).float().mean()
+            worst = max(worst, bad.item())
+        check(worst < 0.005, f"s2d stem raw heads: {worst:.4f} of entries "
+              f"outside 1e-3 + 1e-2|ref|")
+        dets = [make_det_stage(dataclasses.replace(cfg32, s2d_stem=s))(
+            yolo, fdev) for s in (False, True)]
+        check(torch.equal(dets[0]["det_valid"], dets[1]["det_valid"]),
+              "s2d stem changes det_valid")
+        box_err = (dets[0]["boxes"] - dets[1]["boxes"]).abs().max().item()
+        check(box_err < 1.0, f"s2d stem moves boxes by {box_err:.3g} px")
+    print(f"s2d stem, float32 det stage at reso 416 (4 frames): raw heads "
+          f"{100 * worst:.3f}% of entries outside 1e-3 + 1e-2|ref| (bar "
+          f"0.5%), det_valid equal, boxes within {box_err:.2e} px")
+
+    # bf16, the main path's network and frames (batch 8)
+    with torch.inference_mode():
+        fdev = pipe.to_device(frames)
+        x = resize_bilinear_matmul(fdev.to(torch.bfloat16) / 255.0, 416,
+                                   416)
+        fwd = {"plain": lambda: pipe.yolo(x, decode=False),
+               "s2d": lambda: stem_s2d.forward_with_s2d_stem(
+                   pipe.yolo, x, decode=False)}
+        times = {k: time_ms(torch, f, reps=10, rounds=5)[0]
+                 for k, f in fwd.items()}
+        stages = {k: chain_ms(lambda s=make_det_stage(dataclasses.replace(
+            pipe.cfg, s2d_stem=(k == "s2d"))): s(pipe.yolo, fdev), "cuda",
+            k=10, rounds=5) for k in ("plain", "s2d")}
+    print(f"s2d stem, bf16 at batch 8: YOLO forward (raw heads, CUDA-graph "
+          f"replay) plain {times['plain']:.4f} ms, s2d {times['s2d']:.4f} "
+          f"ms; det stage (eager calls between CUDA events) plain "
+          f"{stages['plain']:.4f} ms, s2d {stages['s2d']:.4f} ms [{card}]")
+
+
+def phase_tools(card):
+    """The other tools once each, at reduced iterations."""
+    from betapose_tpu_torch.tools import (probe_conv_mfu, probe_s2d_stage,
+                                          profile_pipeline)
+    t0 = time.perf_counter()
+    prof = profile_pipeline.main(["--batch", "8", "--iters", "3"])
+    check(prof["fps"] > 0, "profile_pipeline")
+    mfu = probe_conv_mfu.main(["--k", "10", "--rounds", "3"])
+    check(len(mfu) == 6, "probe_conv_mfu rows")
+    s2d = probe_s2d_stage.main(["--k", "5", "--rounds", "3"])
+    check(len(s2d) == 2, "probe_s2d_stage rows")
+    print(f"tools: profile_pipeline, probe_conv_mfu, probe_s2d_stage ran in "
+          f"{time.perf_counter() - t0:.1f} s [{card}]")
 
 
 def phase_reference(torch, np):
@@ -403,11 +551,26 @@ def main():
         "source": "betapose_tpu_torch/csrc/heatmap_decode.cu",
         "replaces": "betapose_tpu/ops/pallas/heatmap_decode.py:77",
         "launches": 0, "max_abs_err": None, "ms": None, "plain_ms": None,
-        "bound_ms": None, "bound_by": "bytes", "library_ms": None}}
+        "bound_ms": None, "bound_by": "bytes", "library_ms": None,
+        "library_note": "none: no single PyTorch call computes the decode"},
+        "bottleneck_chain": {
+        "name": "bottleneck_chain", "route": "cuda",
+        "source": "betapose_tpu_torch/csrc/bottleneck_chain.cu",
+        "replaces": "betapose_tpu/ops/pallas/bottleneck_chain.py:102",
+        "launches": 0, "max_abs_err": None, "ms": None, "plain_ms": None,
+        "bound_ms": None, "bound_by": "operations", "library_ms": None,
+        "library_note": "the cuDNN chain, not one call: three F.conv2d "
+                        "(bf16, channels_last), relu and the residual add "
+                        "(tools/probe_vmem_chain.bottleneck_chain_cudnn)"}}
 
     phase_kernels(torch, np, kernels)
-    phase_main_path(torch, np, kernels, card, args.profile_out)
+    phase_chain_kernel(torch, kernels)
+    pipe, frames = phase_main_path(torch, np, kernels, card,
+                                   args.profile_out)
     phase_reference(torch, np)
+    phase_probe_path(torch, kernels, card)
+    phase_s2d_stem(torch, np, pipe, frames, card)
+    phase_tools(card)
 
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card)

@@ -300,8 +300,7 @@ def test_pipeline_needs_cuda_unless_cpu_is_asked_for(setup):
 
 
 @pytest.mark.parametrize("option", [
-    dict(det_capacity=3), dict(host_pose_nms=True), dict(net_type="hgPRM"),
-    dict(s2d_stem=True)])
+    dict(det_capacity=3), dict(host_pose_nms=True), dict(net_type="hgPRM")])
 def test_options_outside_the_slice_raise(option):
     with pytest.raises(NotImplementedError):
         port_pipe.make_pose_step(port_cfg(**option))
