@@ -1,4 +1,4 @@
-// Residual bottleneck chain for Hopper (sm_90a).
+// Residual bottleneck chain for Hopper (sm_90a), on wgmma.
 //
 // Replaces the TPU kernel betapose_tpu/ops/pallas/bottleneck_chain.py
 // (`bottleneck_chain_pallas` -> `_chain_kernel`).  For x [B, H, W, Cin]
@@ -12,43 +12,59 @@
 // with f32 accumulation, rounding at exactly the points of the plain
 // version (ops/kernels/bottleneck_chain.py, bottleneck_chain_plain).
 //
-// Bound: 2*S*Cin*Cm + 18*S*Cm^2 + 2*S*Cm*Cin tensor-core FLOPs for
-// S = B*H*W positions against 2*(2*S*Cin) + weight bytes.  At the probe
-// shapes (batch 96; 13x13x1024->512, 10x8x2048->512, 20x16x1024->256) that
-// is 68-111 GFLOP against 31-75 MB, so the card's 989 TFLOP/s of dense bf16
-// bounds it (0.07-0.11 ms), not its 3.35 TB/s of HBM (0.02-0.04 ms).
+// Bound: 2*S*Cin*Cm + 18*S*Cm^2 + 2*S*Cm*Cin tensor-core FLOPs for S =
+// B*H*W positions against 2*(2*S*Cin) + weight bytes.  At the probe shapes
+// (batch 96; 13x13x1024->512, 10x8x2048->512, 20x16x1024->256) that is
+// 111 / 68 / 68 GFLOP, 0.112 / 0.069 / 0.069 ms at the card's 989 TFLOP/s
+// of dense bf16, against 0.022 / 0.021 / 0.038 ms for the bytes at 3.35
+// TB/s: operations bound it.
 //
-// Design.  The Pallas kernel keeps a whole batch tile's x in VMEM; one
-// frame's x alone (346 KB at 13x13x1024) is larger than the 227 KB of
-// shared memory a Hopper block can have.  So a block takes one tile of
-// TR x TC output positions of one frame (the host picks the largest tile
-// whose buffers fit, in whole rows when a row fits):
-//   1. h1 for the tile and its one-position halo goes to shared memory as
-//      bf16; halo positions outside the frame stay zero (the 3x3's zero
-//      border).  x streams through a staging buffer that aliases h2.
-//   2. The 3x3 is 9 products of shifted h1 rows (a gather of row
-//      addresses; nothing is copied) with w2's taps; h2 goes to shared
-//      memory as bf16.
-//   3. The expand, the residual add and the relu, and y is stored once.
-// x is read from device memory twice per tile: once for h1 (its halo rows
-// also by the neighbouring tile) and again, in step 3's epilogue, for the
-// residual (4-byte loads per lane, likely L2 hits).  y is written once; h1
-// and h2 never leave the SM.
-// Weights stay in global memory and are read through L2 (2-9 MB, resident)
-// into a double-buffered shared tile by cp.async.  Products run on the
-// tensor cores through mma.sync m16n8k16 (bf16 in, f32 accumulators), with
-// fragments loaded by ldmatrix; every block product is cut into chunks of
-// 128 rows x 128 columns, over 8 warps (2 x 4, 64 x 32 each), with one
-// barrier per 32-deep step.
-// This first version runs far below the tensor cores' rate on the H100
-// (PERF.md): one block per SM of 8 warps issuing mma.sync on tiles of
-// 50-160 positions cannot keep them busy, and deeper copy pipelines did not
-// help.  The redesign (wgmma on larger tiles of positions, clusters sharing
-// weight tiles) is later work.
+// Design.  A block of two warpgroups takes a tile of TR x TC output
+// positions of one frame (whole rows when a row fits) and keeps h1, over
+// the tile's halo grid, and h2 in shared memory; y is written once.
+//   Every product is turned around ("swap AB"): out^T[cout, pos] =
+// W^T[cout, k] act^T[k, pos] on wgmma.mma_async m64nNk16.  A is a weight
+// tile of 64 output channels per warpgroup, read transposed (MN-major)
+// from the [k, cout] rows the weights are stored in, so nothing is
+// repacked; channels past Cm or Cin are zero-filled.  B is the tile's
+// positions, N their count rounded up to 16 (one instance per N, 16 to
+// 256); the ragged end is masked in the epilogues.
+//   Activations (x staging, h1, h2) are in the no-swizzle K-major layout:
+// one slab per 8 channels, positions 16 bytes apart in it (SBO 128 bytes,
+// LBO the slab's size).  The 3x3 runs over whole halo rows (hw = TC + 2
+// positions a row; the two border columns are dropped in its epilogue), so
+// tap (dy, dx) is the h1 descriptor with its start moved by (dy*hw + dx)*16
+// bytes: nothing is gathered or copied.  The halo outside the frame is x
+// zero-filled, whose h1 is 0: the 3x3's border.
+//   Weights stream from L2 by cp.async into each warpgroup's own ring of
+// kStages buffers, kKC = 16 deep and 4 steps ahead; a warpgroup syncs on
+// its own named barrier and leaves one step of products in flight, so one
+// warpgroup's products overlap the other's copies.  The h1 and h2
+// epilogues round to bf16 into the slab layout; y's goes through a shared
+// f32 tile, so that the residual x is read, and y written, 16 bytes a lane.
+//   x is read from device memory (mostly L2) once per squeeze pass of 128
+// channels by each warpgroup (Cm / 64 times; a tile's halo rows also by
+// its neighbours), and once more for the residual.
 //
-// Takes Cin and Cm in multiples of 8 (depth and width are zero-padded to
-// 16 inside the block), any H, W >= 1, and 16-byte aligned contiguous
-// tensors.
+// What holds it back: weight bytes per tile first.  Every block streams all
+// of w1, w2 and w3 from L2 (6.8 / 8.9 / 2.2 MB at the probe shapes) for its
+// 65 / 80 / 160 positions, and the time follows blocks x weight bytes: 1.41
+// / 0.70 / 0.54 ms in 288 / 96 / 192 blocks (tiles 5x13, 10x8, 10x16) on an
+// NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py), against 0.45 / 0.36 /
+// 0.62 ms for the cuDNN chain; with no weight copies the same tiles take
+// 0.80 / 0.43 / 0.42 ms (tools/probe_chain_variants; PERF.md).  The 10x8
+// frame whole (96 blocks, 36 SMs idle) is 1.8x faster than in two bands
+// (192 blocks, twice the weight bytes): waves come second to bytes.  More
+// buffers in flight do not help; blocks sharing weight tiles (clusters,
+// TMA multicast) would cut the bytes.  The product pipeline itself comes
+// next: a barrier every 16-deep step.
+//
+// Takes Cin and Cm in multiples of 8 (depth zero-padded to kKC and width
+// to the 64 rows of a warpgroup inside the block), any H, W >= 1, and
+// 16-byte aligned contiguous tensors.
+
+#include <algorithm>
+#include <cmath>
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -58,20 +74,20 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kThreads = 256;
-constexpr int kMC = 128;        // rows of one chunk of a block product
-constexpr int kNC = 128;        // columns of one chunk
-constexpr int kKC = 32;         // depth of one pipeline step
-constexpr int kK16 = kKC / 16;  // k16 slices per step
-constexpr int kStages = 2;      // pipeline buffers (steps in flight + 1);
-                                // 3 and 4 measured no faster on the H100
-constexpr int kPad = 8;         // bf16 padding per shared row (banks)
-constexpr int kALd = kKC + kPad;
-constexpr int kBLd = kNC + kPad;
-constexpr int kAStage = kMC * kALd;   // elements per x staging buffer
-constexpr int kBStage = kKC * kBLd;   // elements per weight buffer
-constexpr int kACopies = kMC * kKC / 8 / kThreads;  // 16-byte copies per
-constexpr int kBCopies = kKC * kNC / 8 / kThreads;  // thread and step
+constexpr int kThreads = 256;     // two warpgroups
+constexpr int kMB = 128;          // output channels a pass, 64 a warpgroup
+constexpr int kKC = 16;           // depth of one pipeline step (one k16)
+constexpr int kStages = 6;        // buffers a warpgroup: steps ahead + 2
+constexpr int kMaxN = 256;        // positions a product: wgmma's widest N
+constexpr int kNStep = 16;        // product widths are multiples of this
+constexpr int kWHalf = kKC * 64 * 2;  // bytes of a warpgroup's weight buffer
+constexpr int kYLd = kMB + 4;     // f32 row stride of the y staging tile
+
+// Dense bf16 multiply-adds of the card per byte of weights its blocks
+// stream from L2, for the planner: 494.5e12 MAC/s (989 TFLOP/s) over the
+// about 1.4e12 B/s this kernel's weight streaming reached on an H100 SXM
+// (PERF.md), so that a block's time is mostly its weight bytes.
+constexpr double kMacPerL2Byte = 350.0;
 
 struct Params {
   const bf16* x;
@@ -80,27 +96,26 @@ struct Params {
   const bf16* w3;
   bf16* y;
   int h, w, cin, cm;
-  int tr, tc;            // output tile rows, columns
-  int tiles_r, tiles_c;  // tiles per frame along H, W
-  int cin16, cm16;       // depths rounded up to 16
-  int ld;                // shared row stride of h1 and h2 (cm16 + kPad)
-  int off_h2, off_b;     // byte offsets of the h2 and weight regions
+  int tr, tc, tiles_c;  // tile rows, columns; tiles per frame along W
+  int hw, p1, p2;       // halo row length tc + 2; halo and tile positions
+  int n1, n3, n2;       // product widths (positions) of the three stages
+  int cin_kc, cm_kc;    // depths rounded up to kKC
+  int off_b, off_w;     // byte offsets of region B (h2, x staging), weights
+};
+
+// One stage of the chain as a product out[cout, pos] = W^T[cout, k] B[k, pos]
+// over `taps` weight matrices [k, m] (row-major, `tap_stride` elements
+// apart), for output channels [0, mout) in passes of kMB.
+struct Stage {
+  int kind;         // 0: squeeze (B: x staging), 1: 3x3 (h1), 2: expand (h2)
+  const bf16* w;
+  int k, m, kd, mout, taps;  // kd: depth k rounded up to kKC
+  size_t tap_stride;
+  uint32_t b;       // shared address of B (tap (0, 0); x staging buffer 0)
+  uint32_t slab;    // bytes per 8-channel slab of B
 };
 
 inline int round_up(int a, int b) { return (a + b - 1) / b * b; }
-
-// Byte sizes of the three shared regions for a TR x TC tile:
-// h1 (with halo), h2 (aliased by x staging) and the weight buffers.
-__host__ inline void region_bytes(int tr, int tc, int cm, size_t* h1,
-                                  size_t* h2, size_t* b) {
-  const size_t row = (static_cast<size_t>(cm + 15) / 16 * 16 + kPad) * 2;
-  const size_t h1b = static_cast<size_t>(tr + 2) * (tc + 2) * row;
-  const size_t h2b = static_cast<size_t>(tr) * tc * row;
-  const size_t stage = kStages * kAStage * 2;
-  *h1 = (h1b + 127) / 128 * 128;
-  *h2 = ((h2b > stage ? h2b : stage) + 127) / 128 * 128;
-  *b = kStages * kBStage * 2;
-}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -108,368 +123,549 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 
 // 16-byte async copy; with valid == false the destination is zero-filled
 // and nothing is read.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::
-               "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0));
 }
 
 __device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-// Wait until at most kStages - 2 committed groups are still in flight.
+// Make this thread's shared writes visible to wgmma (the async proxy).
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Wait until at most kStages - 3 committed groups are still in flight (the
+// copies of the step about to run have landed), then fence them for wgmma.
 __device__ __forceinline__ void cp_async_wait_stage() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2));
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 3) : "memory");
+  fence_async_smem();
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
-                                            const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
+// Barrier of warpgroup g's 128 threads (named barrier 1 + g).
+__device__ __forceinline__ void warpgroup_sync(int g) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + g) : "memory");
 }
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
+// wgmma shared-memory matrix descriptor, no swizzle: start address, LBO
+// (byte stride between core matrices along K), SBO (along M or N).
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>(lbo >> 4) << 16 |
+         static_cast<uint64_t>(sbo >> 4) << 32;
 }
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Wait until at most R committed groups of products are still in flight.
+template <int R>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(R) : "memory");
 }
 
-// Copy rows [k0, k0 + kKC) x columns [n0, n0 + kNC) of the row-major
-// [K, N] weight matrix w into the shared buffer dst; rows >= K and columns
-// >= N are zero-filled: kBCopies copies of 16 bytes per thread.
-__device__ __forceinline__ void stage_weights(bf16* dst, const bf16* w,
-                                              int K, int N, int k0, int n0) {
+// Pin the accumulators at this point of the program, so that no access to
+// them moves across a wgmma fence or wait.
+template <int R>
+__device__ __forceinline__ void hold(float (&d)[R]) {
 #pragma unroll
-  for (int j = 0; j < kBCopies; ++j) {
-    const int q = threadIdx.x + j * kThreads;
-    const int r = q / (kNC / 8);
-    const int c = (q % (kNC / 8)) * 8;
-    const bool ok = (k0 + r < K) && (n0 + c < N);
-    const bf16* src = ok ? w + static_cast<size_t>(k0 + r) * N + n0 + c : w;
-    cp_async16(dst + r * kBLd + c, src, ok);
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Wgmma<N>::run(d, a, b, acc): d[64 x N] = A[64 x 16] B[16 x N] (+ d when
+// acc != 0) for one warpgroup, bf16 in, f32 accumulators; A from shared
+// memory MN-major (transposed: the weights' [k, cout] rows), B K-major.  d
+// holds, for n-block j and e in 0..3, row (warp % 4) * 16 + lane / 4 +
+// 8 * (e / 2) and column 8 * j + 2 * (lane % 4) + e % 2 in d[4 * j + e].
+template <int N>
+struct Wgmma;
+#define BC_D4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define BC_WGMMA(N, A, B, P)                                               \
+  template <>                                                              \
+  struct Wgmma<N> {                                                        \
+    static __device__ __forceinline__ void run(float (&d)[N / 2],         \
+                                               uint64_t a, uint64_t b,     \
+                                               int accumulate) {           \
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " P ", 0;\n"          \
+                   "wgmma.mma_async.sync.aligned.m64n" #N                  \
+                   "k16.f32.bf16.bf16 {" BC_S##N "}, " A ", " B            \
+                   ", p, 1, 1, 1, 0;\n}\n"                                 \
+                   : BC_D##N                                               \
+                   : "l"(a), "l"(b), "r"(accumulate));                     \
+    }                                                                      \
+  };
+// register lists and instances, N = 16 .. 256 in steps of 16
+#define BC_S16 "%0, %1, %2, %3, %4, %5, %6, %7"
+#define BC_S32 BC_S16 ", %8, %9, %10, %11, %12, %13, %14, %15"
+#define BC_S48 BC_S32 ", %16, %17, %18, %19, %20, %21, %22, %23"
+#define BC_S64 BC_S48 ", %24, %25, %26, %27, %28, %29, %30, %31"
+#define BC_S80 BC_S64 ", %32, %33, %34, %35, %36, %37, %38, %39"
+#define BC_S96 BC_S80 ", %40, %41, %42, %43, %44, %45, %46, %47"
+#define BC_S112 BC_S96 ", %48, %49, %50, %51, %52, %53, %54, %55"
+#define BC_S128 BC_S112 ", %56, %57, %58, %59, %60, %61, %62, %63"
+#define BC_S144 BC_S128 ", %64, %65, %66, %67, %68, %69, %70, %71"
+#define BC_S160 BC_S144 ", %72, %73, %74, %75, %76, %77, %78, %79"
+#define BC_S176 BC_S160 ", %80, %81, %82, %83, %84, %85, %86, %87"
+#define BC_S192 BC_S176 ", %88, %89, %90, %91, %92, %93, %94, %95"
+#define BC_S208 BC_S192 ", %96, %97, %98, %99, %100, %101, %102, %103"
+#define BC_S224 BC_S208 ", %104, %105, %106, %107, %108, %109, %110, %111"
+#define BC_S240 BC_S224 ", %112, %113, %114, %115, %116, %117, %118, %119"
+#define BC_S256 BC_S240 ", %120, %121, %122, %123, %124, %125, %126, %127"
+#define BC_D16 BC_D4(0), BC_D4(4)
+#define BC_D32 BC_D16, BC_D4(8), BC_D4(12)
+#define BC_D48 BC_D32, BC_D4(16), BC_D4(20)
+#define BC_D64 BC_D48, BC_D4(24), BC_D4(28)
+#define BC_D80 BC_D64, BC_D4(32), BC_D4(36)
+#define BC_D96 BC_D80, BC_D4(40), BC_D4(44)
+#define BC_D112 BC_D96, BC_D4(48), BC_D4(52)
+#define BC_D128 BC_D112, BC_D4(56), BC_D4(60)
+#define BC_D144 BC_D128, BC_D4(64), BC_D4(68)
+#define BC_D160 BC_D144, BC_D4(72), BC_D4(76)
+#define BC_D176 BC_D160, BC_D4(80), BC_D4(84)
+#define BC_D192 BC_D176, BC_D4(88), BC_D4(92)
+#define BC_D208 BC_D192, BC_D4(96), BC_D4(100)
+#define BC_D224 BC_D208, BC_D4(104), BC_D4(108)
+#define BC_D240 BC_D224, BC_D4(112), BC_D4(116)
+#define BC_D256 BC_D240, BC_D4(120), BC_D4(124)
+BC_WGMMA(16, "%8", "%9", "%10")
+BC_WGMMA(32, "%16", "%17", "%18")
+BC_WGMMA(48, "%24", "%25", "%26")
+BC_WGMMA(64, "%32", "%33", "%34")
+BC_WGMMA(80, "%40", "%41", "%42")
+BC_WGMMA(96, "%48", "%49", "%50")
+BC_WGMMA(112, "%56", "%57", "%58")
+BC_WGMMA(128, "%64", "%65", "%66")
+BC_WGMMA(144, "%72", "%73", "%74")
+BC_WGMMA(160, "%80", "%81", "%82")
+BC_WGMMA(176, "%88", "%89", "%90")
+BC_WGMMA(192, "%96", "%97", "%98")
+BC_WGMMA(208, "%104", "%105", "%106")
+BC_WGMMA(224, "%112", "%113", "%114")
+BC_WGMMA(240, "%120", "%121", "%122")
+BC_WGMMA(256, "%128", "%129", "%130")
+
+// f(Width<N>()) for the instance N = n (a multiple of 16, 16 .. 256).
+template <int N>
+struct Width {
+  static constexpr int value = N;
+};
+template <class F>
+__device__ __forceinline__ void with_width(int n, F&& f) {
+  switch (n / 16) {
+#define BC_CASE(i)        \
+  case i:                 \
+    f(Width<16 * i>());   \
+    break;
+    BC_CASE(1) BC_CASE(2) BC_CASE(3) BC_CASE(4) BC_CASE(5) BC_CASE(6)
+    BC_CASE(7) BC_CASE(8) BC_CASE(9) BC_CASE(10) BC_CASE(11) BC_CASE(12)
+    BC_CASE(13) BC_CASE(14) BC_CASE(15) BC_CASE(16)
+#undef BC_CASE
   }
 }
 
-// One chunk of a block product: acc (this warp's 64 x 32 share of a
-// 128 x 128 chunk) = sum over `steps` pipeline steps of A_s @ B_s.
-//   stage(s, buf): issue the cp.async copies of step s into buffer buf;
-//   arow[mi]: this lane's A row pointer for m16 tile mi of the warp, and
-//   a_off(s, buf): the offset (elements) of step s's depth window from it;
-//   depth16(s): k16 slices of step s that hold data (1 to kK16).
-// The per-step index arithmetic is kept out of the m16 x k16 loops.
-// Ends with every thread past its last read of the buffers.  Copies run
-// kStages - 1 steps ahead of the products.
-template <class Stage, class AOff, class Depth>
-__device__ __forceinline__ void chunk_product(
-    float (&acc)[4][4][4], int steps, int m_rows, const bf16* bstage,
-    const bf16* const (&arow)[4], Stage stage, AOff a_off, Depth depth16) {
+// Copy rows [k0, k0 + kKC) x columns [m0, m0 + 64) of the row-major [K, M]
+// matrix w into one warpgroup's weight buffer at dst, in the no-swizzle
+// MN-major canonical layout: 128-byte core matrices of 8 k-rows x 8
+// columns, core (column block mb, row block kb) at (mb * kKC / 8 + kb) *
+// 128.  Rows >= K and columns >= M are zero-filled.  The 8-lane phases each
+// fill one core matrix (no bank conflicts); a warp reads 8 rows of 64
+// contiguous bytes.
+__device__ __forceinline__ void stage_weights(uint32_t dst, const bf16* w,
+                                              int K, int M, int k0, int m0) {
+  const int wt = threadIdx.x & 127;
+#pragma unroll
+  for (int j = 0; j < kKC * 64 / 8 / 128; ++j) {
+    const int q = wt + j * 128;
+    const int kr = q % 8, mb = (q / 8) % 8, kb = q / 64;
+    const int k = k0 + kb * 8 + kr, m = m0 + mb * 8;
+    const bool ok = k < K && m < M;
+    cp_async16(dst + (mb * (kKC / 8) + kb) * 128 + kr * 16,
+               ok ? w + static_cast<size_t>(k) * M + m : w, ok);
+  }
+}
+
+struct Tile {
+  int r0, c0;           // the tile's first frame row and column
+  const bf16* xb;       // this frame of x
+  bf16* yb;             // this frame of y
+  unsigned char* smem;
+};
+
+// One stage at product width N (positions, >= the stage's own count).
+// Each warpgroup runs its own pipeline over its 64 output channels of every
+// pass of kMB: its own weight buffers (and, in the squeeze, its own x
+// staging), a named barrier of its 128 threads per step, products left in
+// flight one step (wgmma wait_group 1), so that one warpgroup's products
+// overlap the other's copies and barriers.  The steps of all passes form
+// one sequence, so the next pass's copies are in flight during an epilogue.
+template <int N>
+__device__ __forceinline__ void run_stage(const Params& p, const Stage& s,
+                                          const Tile& t) {
+  const int g = threadIdx.x >> 7;          // warpgroup: channels g * 64 ..
+  const int wt = threadIdx.x & 127;
+  const int wq = wt >> 5;                  // warp within the warpgroup
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int warp_m = warp >> 2;
-  const int warp_n = warp & 3;
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+  const uint32_t wbuf =
+      smem_addr(t.smem) + p.off_w + g * kStages * kWHalf;
+  const int ks = s.kd / kKC;
+  const int steps = s.taps * ks;
+  const int total = (s.mout + kMB - 1) / kMB * steps;
 
-  // ldmatrix lane addressing: A k offset; B k row within a k16 slice and
-  // n offset within an n16 pair
-  const int a_k = (lane >> 4) * 8;
-  const int b_k = (lane & 7) + ((lane >> 3) & 1) * 8;
-  const int b_n = warp_n * 32 + (lane >> 4) * 8;
-
-  // kStages - 1 steps in flight; one barrier per step: it also tells
-  // that every warp is done with the buffer the next copy overwrites
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < steps) stage(s, s);
-    cp_async_commit();
+  // squeeze: this thread's x staging copies, as element offsets into the
+  // frame (-1: zero-fill, outside the frame or past the halo; -2: none).
+  // The 8-lane phases fill 8 consecutive positions of one slab; x is read
+  // in runs of kKC channels per position.
+  constexpr int kXC = (N * kKC / 8 + 127) / 128;
+  constexpr uint32_t kXBuf = N * kKC * 2;   // bytes of one x staging buffer
+  const uint32_t xbuf = s.b + g * kStages * kXBuf;
+  int xoff[kXC];
+  if (s.kind == 0) {
+#pragma unroll
+    for (int j = 0; j < kXC; ++j) {
+      const int q = wt + j * 128;
+      const int pos = (q / kKC) * 8 + q % 8;
+      const int hr = pos / p.hw, hc = pos - hr * p.hw;
+      const int fr = t.r0 - 1 + hr, fc = t.c0 - 1 + hc;
+      const bool in = pos < p.p1 && fr >= 0 && fr < p.h && fc >= 0 &&
+                      fc < p.w;
+      xoff[j] = q >= N * kKC / 8 ? -2
+                : in ? (fr * p.w + fc) * p.cin + (q / 8) % (kKC / 8) * 8
+                     : -1;
+    }
   }
-  for (int s = 0; s < steps; ++s) {
-    const int buf = s % kStages;
-    cp_async_wait_stage();
-    __syncthreads();
-    const int next = s + kStages - 1;
-    if (next < steps) stage(next, next % kStages);
-    cp_async_commit();
-    const bf16* bs = bstage + buf * kBStage;
-    const int nk = depth16(s);
-    const int aoff = a_off(s, buf) + a_k;
-#pragma unroll
-    for (int kk = 0; kk < kK16; ++kk) {
-      if (kk >= nk) break;
-      uint32_t bfr[4][2];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        uint32_t r[4];
-        ldmatrix_x4_trans(r, bs + (kk * 16 + b_k) * kBLd + b_n + j * 16);
-        bfr[2 * j][0] = r[0];
-        bfr[2 * j][1] = r[1];
-        bfr[2 * j + 1][0] = r[2];
-        bfr[2 * j + 1][1] = r[3];
+  const uint32_t slab = s.kind == 0 ? N * 16 : s.slab;
+
+  // a step: pass (kMB output channels), tap, depth window within the tap
+  struct Cursor {
+    int pass, tap, kb;
+  };
+  auto advance = [&](Cursor& c) {
+    if (++c.kb == ks) {
+      c.kb = 0;
+      if (++c.tap == s.taps) {
+        c.tap = 0;
+        ++c.pass;
       }
+    }
+  };
+  // issue the copies of step c into buffer buf
+  auto stage = [&](const Cursor& c, int buf) {
+    const int k0 = c.kb * kKC;
+    stage_weights(wbuf + buf * kWHalf, s.w + c.tap * s.tap_stride, s.k, s.m,
+                  k0, c.pass * kMB + g * 64);
+    if (s.kind == 0) {
 #pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        if ((warp_m + 2 * mi) * 16 >= m_rows) break;
-        uint32_t a[4];
-        ldmatrix_x4(a, arow[mi] + aoff + kk * 16);
+      for (int j = 0; j < kXC; ++j) {
+        if (xoff[j] == -2) continue;
+        const int q = wt + j * 128;
+        const int c8 = (q / 8) % (kKC / 8);
+        const int pos = (q / kKC) * 8 + q % 8;
+        const bool ok = xoff[j] >= 0 && k0 + c8 * 8 < p.cin;
+        cp_async16(xbuf + buf * kXBuf + c8 * N * 16 + pos * 16,
+                   ok ? t.xb + xoff[j] + k0 : p.x, ok);
+      }
+    }
+  };
+
+  // kStages - 2 steps of copies in flight ahead of the one in use.  The
+  // barrier of step u also tells that every warp of the warpgroup is done
+  // with the products of step u - 2, whose buffer the next copy overwrites.
+  // The steps of all passes form one sequence, so that the next pass's
+  // copies are in flight during an epilogue.
+  Cursor ahead = {0, 0, 0};
+  int issued = 0, ahead_buf = 0;
+  auto stage_next = [&]() {
+    if (issued < total) {
+      stage(ahead, ahead_buf);
+      advance(ahead);
+      ++issued;
+      ahead_buf = ahead_buf + 1 == kStages ? 0 : ahead_buf + 1;
+    }
+    cp_async_commit();
+  };
+  for (int u = 0; u < kStages - 2; ++u) stage_next();
+
+  float acc[N / 2];
 #pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma_bf16(acc[mi][ni], a, bfr[ni][0],
-                                                bfr[ni][1]);
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+  hold(acc);
+  int buf = 0;
+  for (int pass = 0; pass < total / steps; ++pass) {
+    for (int tap = 0; tap < s.taps; ++tap) {
+      // the 3x3's tap (dy, dx) is B shifted by dy * hw + dx positions
+      const uint32_t shift = s.kind == 1 ? ((tap / 3) * p.hw + tap % 3) * 16
+                                         : 0;
+      for (int kb = 0; kb < ks; ++kb) {
+        cp_async_wait_stage();
+        warpgroup_sync(g);
+        stage_next();
+
+        const int k0 = kb * kKC;
+        const uint32_t bs = s.kind == 0 ? xbuf + buf * kXBuf
+                                        : s.b + (k0 / 8) * slab + shift;
+        const uint32_t as = wbuf + buf * kWHalf;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kKC / 16; ++kk) {
+          // the pass's first product overwrites the accumulators
+          Wgmma<N>::run(acc, smem_desc(as + kk * 256, 128, kKC * 16),
+                        smem_desc(bs + kk * 2 * slab, slab, 128),
+                        (tap | kb | kk) != 0);
+        }
+        wgmma_commit();
+        wgmma_wait<1>();
+        buf = buf + 1 == kStages ? 0 : buf + 1;
+      }
+    }
+    wgmma_wait<0>();
+    hold(acc);
+
+    // epilogue of the pass: this thread's rows (output channels) and
+    // columns (positions), as Wgmma<N> lays them out
+    const int m0 = pass * kMB + g * 64;
+    const int mrow = m0 + wq * 16 + lane / 4;
+    if (s.kind == 0 || s.kind == 1) {
+      // h = bf16(relu(acc)) into the slab layout; channels past Cm (up to
+      // Cm rounded up to kKC) get zeros, the padding the next stage's depth reads
+      unsigned char* base = t.smem + (s.kind == 0 ? 0 : p.off_b);
+      const int pstride = s.kind == 0 ? p.p1 * 16 : p.p2 * 16;
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = mrow + 8 * (e >> 1);
+          const int n = 8 * j + 2 * (lane & 3) + (e & 1);
+          int pos = n;
+          bool ok = c < s.mout;
+          if (s.kind == 0) {
+            ok = ok && n < p.p1;
+          } else {
+            // the 3x3 ran over whole halo rows: drop the two border columns
+            const int r = n / p.hw, cc = n - r * p.hw;
+            ok = ok && r < p.tr && cc < p.tc;
+            pos = r * p.tc + cc;
+          }
+          if (ok)
+            *reinterpret_cast<bf16*>(base + (c >> 3) * pstride + pos * 16 +
+                                     (c & 7) * 2) =
+                __float2bfloat16_rn(fmaxf(acc[4 * j + e], 0.f));
+        }
+      }
+    } else {
+      // y = bf16(relu(acc + x)): the warpgroup's f32 tile goes through
+      // shared memory (its 64 columns of a tile aliasing h1, dead by now)
+      // so that x is read and y written in 16 bytes a lane, 128 contiguous
+      // bytes a position
+      float* ys = reinterpret_cast<float*>(t.smem) + g * 64;
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int n = 8 * j + 2 * (lane & 3) + (e & 1);
+          ys[n * kYLd + wq * 16 + lane / 4 + 8 * (e >> 1)] = acc[4 * j + e];
+        }
+      warpgroup_sync(g);
+      for (int i = wt; i < p.p2 * 8; i += 128) {
+        const int n = i / 8, c8 = i % 8;
+        const int c = m0 + c8 * 8;
+        const int r = n / p.tc, cc = n - r * p.tc;
+        const int fr = t.r0 + r, fc = t.c0 + cc;
+        if (c >= p.cin || fr >= p.h || fc >= p.w) continue;
+        const size_t off = (static_cast<size_t>(fr) * p.w + fc) * p.cin + c;
+        const uint4 xv = *reinterpret_cast<const uint4*>(t.xb + off);
+        const float4 a0 =
+            *reinterpret_cast<const float4*>(ys + n * kYLd + c8 * 8);
+        const float4 a1 =
+            *reinterpret_cast<const float4*>(ys + n * kYLd + c8 * 8 + 4);
+        const float v[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+        const __nv_bfloat162* x2 =
+            reinterpret_cast<const __nv_bfloat162*>(&xv);
+        uint4 out;
+        __nv_bfloat162* o2 = reinterpret_cast<__nv_bfloat162*>(&out);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const float2 xf = __bfloat1622float2(x2[k]);
+          o2[k] = __floats2bfloat162_rn(fmaxf(v[2 * k] + xf.x, 0.f),
+                                        fmaxf(v[2 * k + 1] + xf.y, 0.f));
+        }
+        *reinterpret_cast<uint4*>(t.yb + off) = out;
       }
     }
   }
-  __syncthreads();
-}
-
-// Hand each accumulated pair to emit(row, col, v0, v1): rows < m_rows of
-// the chunk, even columns col, col + 1 of the chunk.
-template <class Emit>
-__device__ __forceinline__ void chunk_epilogue(const float (&acc)[4][4][4],
-                                               int m_rows, Emit emit) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int warp_m = warp >> 2;
-  const int warp_n = warp & 3;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi) {
-    const int mt = warp_m + 2 * mi;
-    if (mt * 16 >= m_rows) break;
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const int col = warp_n * 32 + ni * 8 + 2 * t;
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int row = mt * 16 + g + half * 8;
-        if (row < m_rows)
-          emit(row, col, acc[mi][ni][2 * half], acc[mi][ni][2 * half + 1]);
-      }
-    }
-  }
-}
-
-// This lane's ldmatrix A row within m16 tile mi of the warp.
-__device__ __forceinline__ int lane_a_row(int mi) {
-  const int lane = threadIdx.x & 31;
-  const int warp_m = (threadIdx.x >> 5) >> 2;
-  return (warp_m + 2 * mi) * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
-bottleneck_chain_kernel(const Params p) {
+bottleneck_chain_kernel(const __grid_constant__ Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* h1 = reinterpret_cast<bf16*>(smem);
-  bf16* h2 = reinterpret_cast<bf16*>(smem + p.off_h2);
-  bf16* astage = h2;                       // x staging aliases h2
-  bf16* bstage = reinterpret_cast<bf16*>(smem + p.off_b);
+  const uint32_t s0 = smem_addr(smem);
+  const size_t frame = static_cast<size_t>(p.h) * p.w * p.cin;
+  Tile t;
+  t.r0 = (blockIdx.x / p.tiles_c) * p.tr;
+  t.c0 = (blockIdx.x % p.tiles_c) * p.tc;
+  t.xb = p.x + blockIdx.y * frame;
+  t.yb = p.y + blockIdx.y * frame;
+  t.smem = smem;
 
-  const int b = blockIdx.y;
-  const int r0 = (blockIdx.x / p.tiles_c) * p.tr;
-  const int c0 = (blockIdx.x % p.tiles_c) * p.tc;
-  const int tr = min(p.tr, p.h - r0);
-  const int tc = min(p.tc, p.w - c0);
-  const int hw = p.tc + 2;                 // halo grid row length
-  const int ld = p.ld;
-  const bf16* xb = p.x + static_cast<size_t>(b) * p.h * p.w * p.cin;
-
-  // h1 starts as zeros: the halo outside the frame is the 3x3's border
-  {
-    uint4* z = reinterpret_cast<uint4*>(smem);
-    for (int i = threadIdx.x; i < p.off_h2 / 16; i += kThreads)
-      z[i] = make_uint4(0, 0, 0, 0);
-  }
-  __syncthreads();
-
-  float acc[4][4][4];
-
-  // ---- 1. h1 = relu(x @ w1) over the in-frame halo positions ----
-  const int fr_lo = max(r0 - 1, 0), fr_hi = min(r0 + tr, p.h - 1);
-  const int fc_lo = max(c0 - 1, 0), fc_hi = min(c0 + tc, p.w - 1);
-  const int ncol1 = fc_hi - fc_lo + 1;
-  const int m1 = (fr_hi - fr_lo + 1) * ncol1;
-  const int steps1 = (p.cin16 + kKC - 1) / kKC;
-  for (int m0 = 0; m0 < m1; m0 += kMC) {
-    const int mr = min(kMC, m1 - m0);
-    // this thread's staging rows (fixed across steps)
-    const bf16* xrow[kACopies];
-    bool xok[kACopies];
-    int xr[kACopies], xc[kACopies];
-#pragma unroll
-    for (int j = 0; j < kACopies; ++j) {
-      const int q = threadIdx.x + j * kThreads;
-      xr[j] = q / (kKC / 8);
-      xc[j] = (q % (kKC / 8)) * 8;
-      const int i = m0 + xr[j];
-      xok[j] = i < m1;
-      const int fr = fr_lo + (xok[j] ? i / ncol1 : 0);
-      const int fc = fc_lo + (xok[j] ? i % ncol1 : 0);
-      xrow[j] = xb + (static_cast<size_t>(fr) * p.w + fc) * p.cin;
-    }
-    const bf16* arow[4];
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi) arow[mi] = astage + lane_a_row(mi) * kALd;
-    for (int n0 = 0; n0 < p.cm16; n0 += kNC) {
-      auto stage = [&](int s, int buf) {
-        const int k0 = s * kKC;
-#pragma unroll
-        for (int j = 0; j < kACopies; ++j) {
-          const bool ok = xok[j] && (k0 + xc[j] < p.cin);
-          cp_async16(astage + buf * kAStage + xr[j] * kALd + xc[j],
-                     ok ? xrow[j] + k0 + xc[j] : p.x, ok);
-        }
-        stage_weights(bstage + buf * kBStage, p.w1, p.cin, p.cm, k0, n0);
-      };
-      auto a_off = [](int, int buf) { return buf * kAStage; };
-      auto depth16 = [&](int s) {
-        return min(kK16, (p.cin16 - s * kKC) / 16);
-      };
-      chunk_product(acc, steps1, mr, bstage, arow, stage, a_off, depth16);
-      chunk_epilogue(acc, mr, [&](int row, int col, float v0, float v1) {
-        const int n = n0 + col;
-        if (n >= p.cm16) return;
-        const int i = m0 + row;
-        const int fr = fr_lo + i / ncol1, fc = fc_lo + i % ncol1;
-        const int hidx = (fr - r0 + 1) * hw + (fc - c0 + 1);
-        *reinterpret_cast<__nv_bfloat162*>(h1 + hidx * ld + n) =
-            __floats2bfloat162_rn(fmaxf(v0, 0.f), fmaxf(v1, 0.f));
-      });
-    }
-  }
-  __syncthreads();
-
-  // ---- 2. h2 = relu(conv3x3(h1, w2)) over the tile's positions ----
-  const int m2 = tr * tc;
-  const int ksteps = (p.cm16 + kKC - 1) / kKC;
-  for (int m0 = 0; m0 < m2; m0 += kMC) {
-    const int mr = min(kMC, m2 - m0);
-    const bf16* arow[4];   // this lane's h1 row at tap (0, 0)
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi) {
-      const int i = m0 + lane_a_row(mi);
-      arow[mi] = h1 + (i < m2 ? (i / tc) * hw + (i % tc) : 0) * ld;
-    }
-    for (int n0 = 0; n0 < p.cm16; n0 += kNC) {
-      auto stage = [&](int s, int buf) {
-        const int tap = s / ksteps;
-        stage_weights(bstage + buf * kBStage,
-                      p.w2 + static_cast<size_t>(tap) * p.cm * p.cm, p.cm,
-                      p.cm, (s % ksteps) * kKC, n0);
-      };
-      auto a_off = [&](int s, int) {
-        const int tap = s / ksteps;
-        return ((tap / 3) * hw + tap % 3) * ld + (s - tap * ksteps) * kKC;
-      };
-      auto depth16 = [&](int s) {
-        return min(kK16, (p.cm16 - (s % ksteps) * kKC) / 16);
-      };
-      chunk_product(acc, 9 * ksteps, mr, bstage, arow, stage, a_off,
-                    depth16);
-      chunk_epilogue(acc, mr, [&](int row, int col, float v0, float v1) {
-        const int n = n0 + col;
-        if (n >= p.cm16) return;
-        *reinterpret_cast<__nv_bfloat162*>(h2 + (m0 + row) * ld + n) =
-            __floats2bfloat162_rn(fmaxf(v0, 0.f), fmaxf(v1, 0.f));
-      });
-    }
-  }
-  __syncthreads();
-
-  // ---- 3. y = relu(h2 @ w3 + x) ----
-  for (int m0 = 0; m0 < m2; m0 += kMC) {
-    const int mr = min(kMC, m2 - m0);
-    const bf16* arow[4];
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi) {
-      const int i = m0 + lane_a_row(mi);
-      arow[mi] = h2 + (i < m2 ? i : 0) * ld;
-    }
-    for (int n0 = 0; n0 < p.cin; n0 += kNC) {
-      auto stage = [&](int s, int buf) {
-        stage_weights(bstage + buf * kBStage, p.w3, p.cm, p.cin, s * kKC,
-                      n0);
-      };
-      auto a_off = [](int s, int) { return s * kKC; };
-      auto depth16 = [&](int s) { return min(kK16, (p.cm16 - s * kKC) / 16); };
-      chunk_product(acc, ksteps, mr, bstage, arow, stage, a_off, depth16);
-      chunk_epilogue(acc, mr, [&](int row, int col, float v0, float v1) {
-        const int n = n0 + col;
-        if (n >= p.cin) return;
-        const int i = m0 + row;
-        const size_t off =
-            (static_cast<size_t>(r0 + i / tc) * p.w + c0 + i % tc) * p.cin +
-            n;
-        const float2 xv = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(xb + off));
-        bf16* yb = p.y + static_cast<size_t>(b) * p.h * p.w * p.cin;
-        *reinterpret_cast<__nv_bfloat162*>(yb + off) = __floats2bfloat162_rn(
-            fmaxf(v0 + xv.x, 0.f), fmaxf(v1 + xv.y, 0.f));
-      });
-    }
+  // 1. h1 = relu(x @ w1) over the halo grid, x streamed through staging
+  // 2. h2 = relu(conv3x3(h1, w2)) over whole halo rows of the tile
+  // 3. y = relu(h2 @ w3 + x)
+  // Between stages every thread's shared writes are made visible to the
+  // other warpgroup's products.
+  // The stage is selected from uniform values (no array indexed at run
+  // time), so that the compiler sees the products' control flow as uniform:
+  // wgmma in what it takes for a divergent path is serialized.
+#pragma unroll 1
+  for (int i = 0; i < 3; ++i) {
+    Stage s;
+    s.kind = i;
+    s.w = i == 0 ? p.w1 : i == 1 ? p.w2 : p.w3;
+    s.k = i == 0 ? p.cin : p.cm;
+    s.m = i == 2 ? p.cin : p.cm;
+    s.kd = i == 0 ? p.cin_kc : p.cm_kc;
+    s.mout = i == 2 ? p.cin : p.cm_kc;
+    s.taps = i == 1 ? 9 : 1;
+    s.tap_stride = static_cast<size_t>(p.cm) * p.cm;
+    s.b = i == 1 ? s0 : s0 + p.off_b;
+    s.slab = (i == 1 ? p.p1 : p.p2) * 16;
+    with_width(i == 0 ? p.n1 : i == 1 ? p.n3 : p.n2, [&](auto n) {
+      run_stage<decltype(n)::value>(p, s, t);
+    });
+    fence_async_smem();
+    __syncthreads();
   }
 }
 
-size_t tile_bytes(int tr, int tc, int cm) {
-  size_t h1, h2, b;
-  region_bytes(tr, tc, cm, &h1, &h2, &b);
-  return h1 + h2 + b;
-}
+// Shared memory of a TR x TC tile: region A (h1 over the halo grid, later
+// the f32 y staging tile), region B (the x staging buffers, later h2), the
+// weight buffers.  False when the squeeze's width passes kMaxN.
+struct Plan {
+  int tr, tc, tiles_r, tiles_c, hw, p1, p2, n1, n3, n2, off_b, off_w, bytes;
+};
 
-// The tile for an [H, W] frame: whole rows when one row fits in `budget`
-// bytes (else the widest column band that does), then as many rows as
-// fit, then the same number of bands with their rows (columns) spread
-// evenly.  Returns false when not even one position fits.
-bool plan_tiles(int h, int w, int cm, size_t budget, int* tr, int* tc) {
-  int c = w;
-  while (c > 1 && tile_bytes(1, c, cm) > budget) c = (c + 1) / 2;
-  if (tile_bytes(1, c, cm) > budget) return false;
-  int r = 1;
-  while (r < h && tile_bytes(r + 1, c, cm) <= budget) ++r;
-  const int bands = (h + r - 1) / r;
-  const int cols = (w + c - 1) / c;
-  *tr = (h + bands - 1) / bands;
-  *tc = (w + cols - 1) / cols;
+bool make_plan(int h, int w, int tr, int tc, int cm, Plan* q) {
+  const int cm_kc = round_up(cm, kKC);
+  q->tr = tr;
+  q->tc = tc;
+  q->tiles_r = (h + tr - 1) / tr;
+  q->tiles_c = (w + tc - 1) / tc;
+  q->hw = tc + 2;
+  q->p1 = (tr + 2) * q->hw;
+  q->p2 = tr * tc;
+  q->n1 = round_up(q->p1, kNStep);
+  q->n3 = round_up(tr * q->hw, kNStep);
+  q->n2 = round_up(q->p2, kNStep);
+  if (q->n1 > kMaxN) return false;
+  // the 3x3's last columns read up to n3 - tr * hw + 2 positions past h1's
+  // last slab, and the expand's up to n2 - p2 past h2's: both land in the
+  // regions after them, and feed only columns that are dropped
+  // (at most kMaxN positions, so every size here is well within an int)
+  const int a = round_up(std::max(q->p1 * cm_kc * 2, q->n2 * kYLd * 4), 128);
+  const int b = round_up(
+      std::max(q->p2 * cm_kc * 2, 2 * kStages * q->n1 * kKC * 2), 128);
+  q->off_b = a;
+  q->off_w = a + b;
+  q->bytes = a + b + 2 * kStages * kWHalf;
   return true;
 }
 
-// The current device's shared memory per block.  The first call on a
-// device also raises the kernel's dynamic shared memory limit to it, so
+struct Device {
+  int smem;  // dynamic shared memory a block may have
+  int sms;   // streaming multiprocessors
+};
+
+// The current device's limits.  The first call on a device also raises the
+// kernel's dynamic shared memory limit to the most a block can have, so
 // that later launches (and CUDA-graph captures of them) make no attribute
 // calls.
-size_t smem_budget() {
+bool device_limits(Device* d) {
   constexpr int kMaxDevices = 64;
-  static int budget[kMaxDevices] = {0};
+  static Device cache[kMaxDevices] = {};
   int dev = 0;
-  cudaGetDevice(&dev);
-  if (dev >= kMaxDevices) return 0;
-  if (budget[dev] == 0) {
-    int optin = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev >= kMaxDevices) return false;
+  if (cache[dev].smem == 0) {
+    int optin = 0, sms = 0;
     cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                            dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     cudaFuncSetAttribute(bottleneck_chain_kernel,
                          cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
-    budget[dev] = optin;
+    cache[dev] = {optin, sms};
   }
-  return static_cast<size_t>(budget[dev]);
+  *d = cache[dev];
+  return true;
+}
+
+// The tile for B frames of H x W: whole rows when one row fits (else the
+// fewest column bands that do), then the number of row bands that the
+// least time estimate picks.  One block runs on an SM at a time (the
+// kernel's registers), so blocks go in waves of `sms`; a block's time is
+// its padded multiply-adds at the SM's share of the card's rate, and all
+// blocks together read every weight once each from L2, shared by the card:
+//   est = max(waves * macs * sms, blocks * l2_bytes * kMacPerL2Byte).
+// Ties go to fewer bands.  False when not even one position fits.
+bool plan_tiles(int b, int h, int w, int cin, int cm, const Device& d,
+                Plan* best) {
+  Plan q;
+  int tc = w;
+  for (int cb = 1; cb <= w; ++cb) {
+    tc = (w + cb - 1) / cb;
+    if (make_plan(h, w, 1, tc, cm, &q) && q.bytes <= d.smem) break;
+  }
+  if (!make_plan(h, w, 1, tc, cm, &q) || q.bytes > d.smem) return false;
+  const double cin_kc = round_up(cin, kKC), cm_kc = round_up(cm, kKC);
+  const double m1 = round_up(cm_kc, kMB), m3 = round_up(cin, kMB);
+  const double wbytes = 2.0 * (2.0 * cin * cm + 9.0 * cm * cm);
+  double best_est = -1;
+  for (int rb = 1; rb <= h; ++rb) {
+    const int tr = (h + rb - 1) / rb;
+    if (rb > 1 && (h + rb - 2) / (rb - 1) == tr) continue;   // same tile
+    if (!make_plan(h, w, tr, tc, cm, &q) || q.bytes > d.smem) continue;
+    const double blocks = static_cast<double>(b) * q.tiles_r * q.tiles_c;
+    const double waves = std::ceil(blocks / d.sms);
+    const double macs = q.n1 * cin_kc * m1 + 9.0 * q.n3 * cm_kc * m1 +
+                        q.n2 * cm_kc * m3;
+    // weights; x once a squeeze pass by each warpgroup, once for the
+    // residual
+    const double l2 = wbytes + 2.0 * cin * (2.0 * q.p1 * m1 / kMB + q.p2);
+    const double est = std::max(waves * macs * d.sms,
+                                blocks * l2 * kMacPerL2Byte);
+    if (best_est < 0 || est < best_est) {
+      best_est = est;
+      *best = q;
+    }
+  }
+  return best_est >= 0;
+}
+
+bool plan_for(int b, int h, int w, int cin, int cm, Plan* q) {
+  Device d;
+  return device_limits(&d) && plan_tiles(b, h, w, cin, cm, d, q);
 }
 
 }  // namespace
+
+// The plan the kernel takes for these sizes on the current device:
+// out = {tile rows, tile columns, blocks, shared bytes per block, product
+// widths of the squeeze, the 3x3 and the expand}.  Returns 0, or
+// cudaErrorInvalidValue when no tile fits.
+extern "C" int bottleneck_chain_plan(int b, int h, int w, int cin, int cm,
+                                     int* out) {
+  Plan q;
+  if (cin % 8 != 0 || cm % 8 != 0 || h < 1 || w < 1 || cin < 8 || cm < 8 ||
+      !plan_for(b, h, w, cin, cm, &q))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int v[7] = {q.tr, q.tc, b * q.tiles_r * q.tiles_c, q.bytes,
+                    q.n1, q.n3, q.n2};
+  for (int i = 0; i < 7; ++i) out[i] = v[i];
+  return 0;
+}
 
 // x, y: [B, H, W, Cin] bf16; w1: [Cin, Cm]; w2: [9, Cm, Cm]; w3: [Cm, Cin];
 // all contiguous and 16-byte aligned, Cin and Cm multiples of 8.
@@ -479,13 +675,12 @@ extern "C" int bottleneck_chain_launch(const void* x, const void* w1,
                                        const void* w2, const void* w3,
                                        void* y, int b, int h, int w, int cin,
                                        int cm, void* stream) {
-  if (cin % 8 != 0 || cm % 8 != 0 || b < 0 || h < 1 || w < 1 || cin < 8 ||
-      cm < 8)
+  if (cin % 8 != 0 || cm % 8 != 0 || b < 0 || b > 65535 || h < 1 || w < 1 ||
+      cin < 8 || cm < 8)
     return static_cast<int>(cudaErrorInvalidValue);
-  int plan[3];
-  if (!plan_tiles(h, w, cm, smem_budget(), &plan[0], &plan[1]))
+  Plan q;
+  if (!plan_for(b > 0 ? b : 1, h, w, cin, cm, &q))
     return static_cast<int>(cudaErrorInvalidValue);
-  plan[2] = static_cast<int>(tile_bytes(plan[0], plan[1], cm));
   if (b == 0) return 0;
   Params p;
   p.x = static_cast<const bf16*>(x);
@@ -497,20 +692,21 @@ extern "C" int bottleneck_chain_launch(const void* x, const void* w1,
   p.w = w;
   p.cin = cin;
   p.cm = cm;
-  p.tr = plan[0];
-  p.tc = plan[1];
-  p.tiles_r = (h + p.tr - 1) / p.tr;
-  p.tiles_c = (w + p.tc - 1) / p.tc;
-  p.cin16 = round_up(cin, 16);
-  p.cm16 = round_up(cm, 16);
-  p.ld = p.cm16 + kPad;
-  size_t h1b, h2b, bb;
-  region_bytes(p.tr, p.tc, cm, &h1b, &h2b, &bb);
-  p.off_h2 = static_cast<int>(h1b);
-  p.off_b = static_cast<int>(h1b + h2b);
-  const int bytes = plan[2];
-  const dim3 grid(p.tiles_r * p.tiles_c, b);
-  bottleneck_chain_kernel<<<grid, kThreads, bytes,
+  p.tr = q.tr;
+  p.tc = q.tc;
+  p.tiles_c = q.tiles_c;
+  p.hw = q.hw;
+  p.p1 = q.p1;
+  p.p2 = q.p2;
+  p.n1 = q.n1;
+  p.n3 = q.n3;
+  p.n2 = q.n2;
+  p.cin_kc = round_up(cin, kKC);
+  p.cm_kc = round_up(cm, kKC);
+  p.off_b = q.off_b;
+  p.off_w = q.off_w;
+  const dim3 grid(q.tiles_r * q.tiles_c, b);
+  bottleneck_chain_kernel<<<grid, kThreads, q.bytes,
                             static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

@@ -15,7 +15,9 @@ The chain is on no model path; `tools/probe_vmem_chain.py` races it against
 the cuDNN conv chain.
 
 `bottleneck_chain` takes the plain version only for tensors on the CPU; a
-CUDA tensor goes through the kernel (`csrc/bottleneck_chain.cu`) or raises.
+CUDA tensor goes through the kernel (`csrc/bottleneck_chain.cu`, on wgmma)
+or raises.  `kernel_plan` reports the kernel's tile, blocks and product
+widths for a shape.
 """
 
 from __future__ import annotations
@@ -29,6 +31,9 @@ import torch.nn.functional as F
 from betapose_tpu_torch.ops.kernels import build
 
 SOURCE = "bottleneck_chain.cu"
+
+# the product widths (wgmma N, positions) the kernel has an instance for
+KERNEL_WIDTHS = tuple(range(16, 257, 16))
 
 
 @contextlib.contextmanager
@@ -120,6 +125,23 @@ def _entry():
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
+
+
+def kernel_plan(b, h, w, cin, cm):
+    """The tile the CUDA kernel takes for x [B,H,W,Cin] and Cm on the current
+    CUDA device: {"tile": (rows, cols), "blocks", "smem_bytes", "widths":
+    (squeeze, 3x3, expand)}, the widths being the wgmma N (positions) of
+    the three products.  Raises ValueError when no tile fits."""
+    fn = build.load(SOURCE).bottleneck_chain_plan
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 7)()
+    if fn(b, h, w, cin, cm, out) != 0:
+        raise ValueError(f"the kernel takes no tile for H={h} W={w} "
+                         f"Cin={cin} Cm={cm}")
+    return {"tile": (out[0], out[1]), "blocks": out[2],
+            "smem_bytes": out[3], "widths": (out[4], out[5], out[6])}
 
 
 def _launch(x, w1, w2, w3):

@@ -12,7 +12,8 @@ result line):
 2. Each kernel against its plain PyTorch version on the card, at its
    path's shapes and on edge cases: `decode_peaks` bitwise equal;
    `bottleneck_chain` (bf16) within max|k-p| / max|p| <= 2e-2, the JAX
-   package's bf16 bar.
+   package's bf16 bar, with its tile per case, and over one-row frames
+   that take every width instance of the kernel.
 3. The main path at full width: YOLOv3-416 (1 class) -> FastPose
    SE-ResNet101 (50 keypoints) -> peak decode -> PnP through
    `PosePipeline` at batch 8 of 480x640 frames, bf16 convs, seeded random
@@ -29,7 +30,7 @@ result line):
    kernel call the probe made (the probe itself raises when the kernel and
    the cuDNN chain disagree; phase 2 is the check against the plain
    version).  Then the kernel, its plain version and the cuDNN chain are
-   timed at each shape.
+   timed at each shape, with the kernel's tile, blocks and widths.
 6. The s2d stem: the float32 det stage at reso 416 with and without
    `s2d_stem` on the same frames (raw heads within the JAX test's
    statistical bar, equal det_valid, boxes within 1 px), then both stems
@@ -60,11 +61,19 @@ F32_FLOPS = 67e12
 BF16_FLOPS = 989e12
 
 # bottleneck_chain cases (B, H, W, Cin, Cm): the probe's three shapes at
-# batch 96, then edge cases (the JAX test shapes, B=1, H=W=1, H=1)
+# batch 96, then edge cases: the JAX test shapes, B=1, H=W=1, H=1; Cin and
+# Cm not multiples of 64 (the wgmma M side padded, depth zero-filled);
+# W=1; frames cut into several row bands, and into column bands too; tiles
+# whose position counts are not multiples of 8 (most of these)
 CHAIN_PROBE = [(96, 13, 13, 1024, 512), (96, 10, 8, 2048, 512),
                (96, 20, 16, 1024, 256)]
 CHAIN_EDGES = [(2, 5, 4, 16, 8), (4, 3, 3, 8, 16), (1, 13, 13, 1024, 512),
-               (3, 1, 1, 64, 32), (2, 1, 13, 256, 128), (2, 7, 9, 40, 24)]
+               (3, 1, 1, 64, 32), (2, 1, 13, 256, 128), (2, 7, 9, 40, 24),
+               (2, 6, 7, 24, 40), (2, 5, 5, 8, 8), (3, 9, 1, 16, 8),
+               (1, 30, 30, 512, 512), (2, 40, 90, 64, 32)]
+# one-row frames of width 1..80: their products take every width instance
+# of the kernel (bottleneck_chain.KERNEL_WIDTHS)
+CHAIN_WIDTHS = [(1, 1, w, 8, 8) for w in range(1, 81)]
 CHAIN_BAR = 2e-2
 
 CAM_K = [[572.4114, 0.0, 325.2611],
@@ -179,11 +188,12 @@ def phase_kernels(torch, np, kernels):
 
 def phase_chain_kernel(torch, kernels):
     """The kernel against its plain version on the probe's inputs (x * 0.1,
-    He-scaled weights: the chain's term is as large as the residual)."""
+    He-scaled weights: the chain's term is as large as the residual), at
+    the probe's shapes, the edge cases and over every width instance."""
     from betapose_tpu_torch.ops.kernels import bottleneck_chain as bc
     from betapose_tpu_torch.tools.probe_vmem_chain import chain_inputs
-    worst = 0.0
-    for shape in CHAIN_PROBE + CHAIN_EDGES:
+
+    def compare(shape):
         args = chain_inputs(*shape, "cuda")
         out = bc.bottleneck_chain(*args)
         torch.cuda.synchronize()
@@ -191,12 +201,31 @@ def phase_chain_kernel(torch, kernels):
         torch.cuda.synchronize()
         diff = (out.float() - ref.float()).abs()
         ratio = (diff.max() / ref.float().abs().max()).item()
-        share = (diff > 0).float().mean().item()
         check(ratio <= CHAIN_BAR, f"bottleneck_chain differs from its plain "
               f"version at {shape}: {ratio:.3g} > {CHAIN_BAR}")
+        return diff, ratio
+
+    worst = 0.0
+    for shape in CHAIN_PROBE + CHAIN_EDGES:
+        diff, ratio = compare(shape)
         worst = max(worst, diff.max().item())
+        plan = bc.kernel_plan(*shape)
         print(f"bottleneck_chain vs plain at {list(shape)}: max|k-p|/max|p| "
-              f"{ratio:.3e}, {100 * share:.3f}% of elements differ")
+              f"{ratio:.3e}, {100 * (diff > 0).float().mean().item():.3f}% "
+              f"of elements differ (tile {plan['tile']}, {plan['blocks']} "
+              f"blocks, widths {plan['widths']})")
+    widths, ratios = set(), []
+    for shape in CHAIN_WIDTHS:
+        diff, ratio = compare(shape)
+        worst = max(worst, diff.max().item())
+        ratios.append(ratio)
+        widths.update(bc.kernel_plan(*shape)["widths"])
+    check(widths == set(bc.KERNEL_WIDTHS), f"the width sweep took widths "
+          f"{sorted(widths)}, not every instance {bc.KERNEL_WIDTHS}")
+    print(f"bottleneck_chain vs plain on {len(CHAIN_WIDTHS)} one-row frames "
+          f"(W=1..{len(CHAIN_WIDTHS)}), every width instance "
+          f"{bc.KERNEL_WIDTHS[0]}..{bc.KERNEL_WIDTHS[-1]} taken: max|k-p|/"
+          f"max|p| at most {max(ratios):.3e}")
     kernels["bottleneck_chain"]["max_abs_err"] = worst
 
 
@@ -339,18 +368,23 @@ def phase_probe_path(torch, kernels, card):
         flops = bc.chain_flops(*shape)
         n_bytes = 2 * (2 * x.numel() + w1.numel() + w2.numel() + w3.numel())
         t_ops, t_bytes = flops / BF16_FLOPS, n_bytes / HBM_BYTES_PER_S
+        plan = bc.kernel_plan(*shape)
         per_shape.append({
             "shape": "x".join(map(str, shape[:4])) + f"->cm{shape[4]}",
             "ms": k_ms, "plain_ms": p_ms, "library_ms": c_ms,
             "bound_ms": max(t_ops, t_bytes) * 1e3,
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes"})
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "tile": list(plan["tile"]), "blocks": plan["blocks"],
+            "widths": list(plan["widths"])})
         print(f"bottleneck_chain {list(shape)}: device time kernel "
               f"{k_ms:.4f} ms (eager {k_eager:.4f} ms), plain f32 "
               f"{p_ms:.4f} ms, cuDNN chain {c_ms:.4f} ms; bound "
               f"{per_shape[-1]['bound_ms']:.4f} ms "
               f"({per_shape[-1]['bound_by']}: {flops / 1e9:.1f} GFLOP, "
               f"{n_bytes / 1e6:.1f} MB); {flops / k_ms / 1e9:.1f} TFLOP/s "
-              f"= {100 * flops / k_ms / 1e9 / 989:.1f}% of 989 [{card}]")
+              f"= {100 * flops / k_ms / 1e9 / 989:.1f}% of 989; tile "
+              f"{plan['tile']}, {plan['blocks']} blocks, widths "
+              f"{plan['widths']} [{card}]")
     # the line's own numbers are those of the first (largest) shape
     rec.update({k: per_shape[0][k] for k in
                 ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
@@ -543,7 +577,8 @@ def main():
           f"{time.perf_counter() - t0:.1f} s")
     for src, rep in reports.items():
         for line in rep.splitlines():
-            if "registers" in line or "spill" in line:
+            # ptxas: registers, spills, and any advisory (a serialized wgmma)
+            if any(k in line for k in ("registers", "spill", "Performance")):
                 print(f"  {src}: {line.strip()}")
 
     kernels = {"decode_peaks": {

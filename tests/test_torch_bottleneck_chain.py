@@ -9,7 +9,8 @@ within one bf16 step of max|y| with at most 2% of the elements different
 (both round at the same three points; an accumulation-order difference
 can flip one rounding), a bar that a skipped chain or an unrounded h1
 fails.  The CUDA kernel is held against the plain version on the card
-(`cuda` marker; skipped without a GPU).  The plain version runs its
+(`cuda` marker; skipped without a GPU; run them there with `python -m
+pytest tests/test_torch_bottleneck_chain.py -m cuda`).  The plain version runs its
 products in full float32 whatever the process's TF32 setting.
 """
 
@@ -211,15 +212,9 @@ def test_probe_needs_cuda_unless_cpu_is_asked_for():
         probe_vmem_chain.main(["--batch", "1"])
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(2, 5, 4, 16, 8), (4, 3, 3, 8, 16),
-                                   (1, 1, 1, 8, 8), (2, 1, 13, 64, 32),
-                                   (8, 13, 13, 1024, 512)])
-def test_kernel_matches_plain_on_card(shape):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    from betapose_tpu_torch.core.device import resolve_device
-    resolve_device("cuda")                  # TF32 off
+def _kernel_vs_plain(shape):
+    """The kernel's output on the probe's inputs at `shape`, held within
+    2e-2 of max|plain| (chip_smoke's bar), with one launch counted."""
     args = probe_vmem_chain.chain_inputs(*shape, "cuda")
     before = port_bc.bottleneck_chain.launches
     out = port_bc.bottleneck_chain(*args)
@@ -227,3 +222,38 @@ def test_kernel_matches_plain_on_card(shape):
     assert port_bc.bottleneck_chain.launches == before + 1
     ref = port_bc.bottleneck_chain_plain(*args).float()
     assert (out.float() - ref).abs().max() <= 2e-2 * ref.abs().max()
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from betapose_tpu_torch.core.device import resolve_device
+    resolve_device("cuda")                  # TF32 off
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (2, 5, 4, 16, 8), (4, 3, 3, 8, 16), (1, 1, 1, 8, 8), (2, 1, 13, 64, 32),
+    (8, 13, 13, 1024, 512),
+    (2, 6, 7, 24, 40),     # Cin, Cm not multiples of 64: A's M side padded
+    (2, 5, 5, 8, 8),       # 35 and 49 positions: widths past the count
+    (3, 9, 1, 16, 8),      # W = 1
+    (1, 30, 30, 512, 512),  # 30 row bands
+    (2, 40, 90, 64, 32),   # row and column bands
+])
+def test_kernel_matches_plain_on_card(shape):
+    _need_card()
+    _kernel_vs_plain(shape)
+
+
+@pytest.mark.cuda
+def test_kernel_takes_every_width_on_card():
+    """One-row frames of width 1..80 take every width instance of the
+    kernel (the squeeze's halo grid grows by 3 positions a column), and
+    each agrees with the plain version."""
+    _need_card()
+    widths = set()
+    for w in range(1, 81):
+        _kernel_vs_plain((1, 1, w, 8, 8))
+        widths.update(port_bc.kernel_plan(1, 1, w, 8, 8)["widths"])
+    assert widths == set(port_bc.KERNEL_WIDTHS)

@@ -5,6 +5,7 @@ on the card raise.  The numbers themselves come only from runs on the card
 (`chip_smoke.py`)."""
 
 import json
+import os
 
 import pytest
 
@@ -12,6 +13,9 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from betapose_tpu_torch.core import profiling  # noqa: E402
+from betapose_tpu_torch.ops.kernels import bottleneck_chain as bc  # noqa: E402
+from betapose_tpu_torch.ops.kernels import build  # noqa: E402
+from betapose_tpu_torch.tools import probe_chain_variants  # noqa: E402
 from betapose_tpu_torch.tools import probe_conv_mfu  # noqa: E402
 from betapose_tpu_torch.tools import probe_s2d_stage  # noqa: E402
 from betapose_tpu_torch.tools import profile_pipeline  # noqa: E402
@@ -122,3 +126,31 @@ def test_runtime_profile_summary():
         pass
     assert prof.summary().startswith("dt: ")
     assert "pt" not in prof.summary()
+
+
+@pytest.mark.parametrize("name", sorted(probe_chain_variants.VARIANTS))
+def test_chain_variant_edits_apply_to_the_kernel_source(name):
+    """Every variant of the chain probe still applies to the committed
+    source, each edit exactly once, and changes it unless it is the
+    committed kernel."""
+    path = os.path.join(build.CSRC, bc.SOURCE)
+    with open(path) as f:
+        source = f.read()
+    edited = probe_chain_variants.variant_source(name, source)
+    assert (edited == source) == (name == "committed")
+
+
+def test_chain_variant_rejects_an_edit_that_does_not_apply(monkeypatch):
+    monkeypatch.setitem(probe_chain_variants.VARIANTS, "stale",
+                        ([("no such text", "x")], True))
+    with pytest.raises(ValueError, match="applies 0 times"):
+        probe_chain_variants.variant_source("stale", "kernel source")
+
+
+def test_chain_variants_need_cuda_and_known_names():
+    with pytest.raises(ValueError, match="unknown variants"):
+        probe_chain_variants.main(["--variants", "committed,fastest"])
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks its absence")
+    with pytest.raises(RuntimeError, match="needs a CUDA device"):
+        probe_chain_variants.main(["--variants", "committed"])
