@@ -1,11 +1,18 @@
-"""Box post-processing: xywh->xyxy, IoU, the reference's best-box selection
-and the box rescales back to frame pixels.
+"""Box post-processing: xywh->xyxy, IoU, the reference's best-box selection,
+the capacity-N candidate selection and the box rescales back to frame
+pixels.
 
 Counterpart of `betapose_tpu/ops/boxes.py` (reference `yolo/util.py:104-224`):
 objectness threshold mask, class filter, and one best box per frame by
 masked objectness (the reference hard-codes NMS off, `yolo/util.py:181`,
-and keeps the argmax, `yolo/util.py:210-211`).  The capacity-N `top_boxes`
-and greedy `nms` belong to the multi-candidate path (ROADMAP slice 2).
+and keeps the argmax, `yolo/util.py:210-211`).  The multi-candidate path
+(`det_capacity > 1`) keeps up to N boxes per frame with `top_boxes`: a
+top-`prefilter` cut by masked objectness, then greedy `nms`, both batched
+over frames with fixed shapes and no host sync.
+
+Order among equal scores follows `jax.lax.top_k` and the stable
+`jnp.argsort`: the lower index first.  `torch.topk` does not promise that,
+so both selections use a stable descending `torch.sort`.
 """
 
 from __future__ import annotations
@@ -85,3 +92,77 @@ def unletterbox_boxes(boxes, orig_w, orig_h, reso: int):
         (boxes[..., 0] - off_x) / scale, (boxes[..., 1] - off_y) / scale,
         (boxes[..., 2] - off_x) / scale, (boxes[..., 3] - off_y) / scale],
         dim=-1)
+
+
+def _sort_desc(scores):
+    """(values, indices) sorted descending along the last axis; equal
+    values keep their index order, as `jax.lax.top_k` and the stable
+    `jnp.argsort(-scores)` give."""
+    return torch.sort(scores, dim=-1, descending=True, stable=True)
+
+
+def nms(boxes, scores, iou_thresh: float, max_out: int):
+    """Greedy NMS over each frame's rows, fixed shapes (the reference's dead
+    `nms=True` branch, `yolo/util.py:183-199`, and darknet's `do_nms_sort`).
+
+    boxes [B,n,4] xyxy, scores [B,n].  Rows are visited in descending score
+    order; a visited row that is still alive suppresses every later row with
+    IoU >= iou_thresh.  Returns (keep_idx [B,max_out] int64 row indices in
+    visiting order, padded with 0; keep_mask [B,max_out]).
+
+    The IoU matrix is taken once; each of the n trips only updates the
+    alive mask, on the device, with no host sync."""
+    b, n = scores.shape
+    order = _sort_desc(scores)[1]
+    boxes_sorted = boxes.gather(1, order[..., None].expand(-1, -1, 4))
+    ious = bbox_iou(boxes_sorted[:, :, None], boxes_sorted[:, None, :])
+    later = torch.ones(n, n, dtype=torch.bool,
+                       device=boxes.device).triu(diagonal=1)
+    suppress = (ious >= iou_thresh) & later                   # [B,n,n]
+    alive = torch.ones(b, n, dtype=torch.bool, device=boxes.device)
+    for i in range(n):
+        alive = alive & ~(alive[:, i:i + 1] & suppress[:, i])
+    # the first max_out survivors in visiting order
+    rank = alive.long().cumsum(dim=1) - 1
+    slot = torch.where(alive & (rank < max_out), rank, max_out)
+    keep_idx = torch.zeros(b, max_out + 1, dtype=torch.long,
+                           device=boxes.device)
+    keep_idx.scatter_(1, slot, order)
+    keep_mask = torch.zeros(b, max_out + 1, dtype=torch.bool,
+                            device=boxes.device)
+    keep_mask.scatter_(1, slot, alive)
+    return keep_idx[:, :max_out], keep_mask[:, :max_out]
+
+
+def top_boxes(predictions, confidence: float, target_class: int = 0,
+              capacity: int = 4, nms_thresh: float = 0.4,
+              prefilter: int = 64):
+    """Capacity-N extension of `best_box` for crowded/occlusion scenes: up
+    to `capacity` target-class boxes per frame by objectness after greedy
+    NMS (the reference's `nms=True` branch, `yolo/util.py:183-199`).
+
+    The candidates are first cut to the top `prefilter` rows by masked
+    objectness (rows failing the mask score -1 and can fill slots, marked
+    invalid), then `nms` picks up to `capacity`.
+
+    predictions: [B, nBoxes, 5+nC].  Returns a dict: boxes [B,N,4] xyxy
+    (network-input pixels), obj_score [B,N], cls_score [B,N], valid [B,N]
+    (False for padded slots and below-threshold rows)."""
+    m = min(prefilter, predictions.shape[1])
+    obj = predictions[..., 4]
+    cls_score = predictions[..., 5:].amax(dim=-1)
+    cls_best = predictions[..., 5:].argmax(dim=-1)
+    mask = (obj > confidence) & (cls_best == target_class)
+    masked_obj = torch.where(mask, obj, torch.full_like(obj, -1.0))
+    top_sc, top_i = _sort_desc(masked_obj)
+    top_sc, top_i = top_sc[:, :m], top_i[:, :m]
+    boxes_m = xywh_to_xyxy(predictions[..., :4].gather(
+        1, top_i[..., None].expand(-1, -1, 4)))
+    keep_idx, keep_mask = nms(boxes_m, top_sc, nms_thresh, capacity)
+    rows = top_i.gather(1, keep_idx)                        # [B,N]
+    return {
+        "boxes": boxes_m.gather(1, keep_idx[..., None].expand(-1, -1, 4)),
+        "obj_score": obj.gather(1, rows),
+        "cls_score": cls_score.gather(1, rows),
+        "valid": keep_mask & mask.gather(1, rows),
+    }

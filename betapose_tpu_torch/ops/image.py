@@ -83,9 +83,14 @@ def crop_box_params(ul, br, res_h: int, res_w: int):
 
 def crop_box_matmul(img, ul, br, res_h: int, res_w: int):
     """The reference `cropBox` (`KPD/src/utils/img.py:242-262`) as two
-    matmuls per box: img [B,H,W,C], one box per image ul, br [B,2] ->
-    [B,res_h,res_w,C].  Weight rows are clip(1 - |src - j|, 0) masked to
-    the crop window [ul, br), which reproduces SpecialCrop+Pad's zero fill."""
+    matmuls per box: img [B,H,W,C] with one box per image, ul, br [B,2] ->
+    [B,res_h,res_w,C], or N boxes per image, ul, br [B,N,2] ->
+    [B,N,res_h,res_w,C] (each image's boxes read that image; it is not
+    repeated).  Weight rows are clip(1 - |src - j|, 0) masked to the crop
+    window [ul, br), which reproduces SpecialCrop+Pad's zero fill."""
+    per_box = ul.dim() == 3
+    if not per_box:
+        ul, br = ul[:, None], br[:, None]
     _, h, w, _ = img.shape
     dev = img.device
     ul = torch.floor(ul.float())
@@ -95,20 +100,21 @@ def crop_box_matmul(img, ul, br, res_h: int, res_w: int):
 
     ii = torch.arange(res_h, dtype=torch.float32, device=dev)
     jj = torch.arange(res_w, dtype=torch.float32, device=dev)
-    src_y = (ii[None] * (len_h[:, None] - 1.0) / (res_h - 1.0)
-             - pad_top[:, None] + ul[:, 1:2])                  # [B,res_h]
-    src_x = (jj[None] * (len_w[:, None] - 1.0) / (res_w - 1.0)
-             - pad_left[:, None] + ul[:, 0:1])                 # [B,res_w]
+    src_y = (ii * (len_h[..., None] - 1.0) / (res_h - 1.0)
+             - pad_top[..., None] + ul[..., 1:2])              # [B,N,res_h]
+    src_x = (jj * (len_w[..., None] - 1.0) / (res_w - 1.0)
+             - pad_left[..., None] + ul[..., 0:1])             # [B,N,res_w]
 
     rows = torch.arange(h, dtype=torch.float32, device=dev)
     cols = torch.arange(w, dtype=torch.float32, device=dev)
-    wy = (1.0 - (src_y[:, :, None] - rows).abs()).clamp_min(0.0)
-    wy = wy * ((rows >= ul[:, 1:2]) & (rows < br[:, 1:2]))[:, None, :]
-    wx = (1.0 - (src_x[:, :, None] - cols).abs()).clamp_min(0.0)
-    wx = wx * ((cols >= ul[:, 0:1]) & (cols < br[:, 0:1]))[:, None, :]
+    wy = (1.0 - (src_y[..., None] - rows).abs()).clamp_min(0.0)
+    wy = wy * ((rows >= ul[..., 1:2]) & (rows < br[..., 1:2]))[..., None, :]
+    wx = (1.0 - (src_x[..., None] - cols).abs()).clamp_min(0.0)
+    wx = wx * ((cols >= ul[..., 0:1]) & (cols < br[..., 0:1]))[..., None, :]
 
-    tmp = torch.einsum("bih,bhwc->biwc", wy.to(img.dtype), img)
-    return torch.einsum("bjw,biwc->bijc", wx.to(img.dtype), tmp)
+    tmp = torch.einsum("bnih,bhwc->bniwc", wy.to(img.dtype), img)
+    out = torch.einsum("bnjw,bniwc->bnijc", wx.to(img.dtype), tmp)
+    return out if per_box else out[:, 0]
 
 
 def expand_boxes(boxes, img_h: int, img_w: int):
@@ -130,10 +136,10 @@ def expand_boxes(boxes, img_h: int, img_w: int):
 
 
 def crop_from_dets(imgs_rgb01, boxes, res_h: int, res_w: int):
-    """Reference `crop_from_dets` with one box per frame.
+    """Reference `crop_from_dets`, one box or N boxes per frame.
 
-    imgs_rgb01: [B,H,W,3] RGB in [0,1]; boxes [B,4] xyxy.  Returns
-    (inps [B,res_h,res_w,3], pt1 [B,2], pt2 [B,2])."""
+    imgs_rgb01: [B,H,W,3] RGB in [0,1]; boxes [B,4] or [B,N,4] xyxy.
+    Returns (inps [B,(N,)res_h,res_w,3], pt1 [B,(N,)2], pt2 [B,(N,)2])."""
     _, h, w, _ = imgs_rgb01.shape
     img = imgs_rgb01 + torch.tensor(KPD_RGB_OFFSETS, dtype=imgs_rgb01.dtype,
                                     device=imgs_rgb01.device)

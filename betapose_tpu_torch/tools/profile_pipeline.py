@@ -19,9 +19,11 @@ JSON document:
   QR are not counted), and `mfu_step` against the H100 SXM dense bf16 peak
   (989 TFLOP/s, NVIDIA data sheet).
 
-Only the capacity-1 step is ported: `--det_capacity` > 1 raises, as the
-pipeline does (ROADMAP slice 2).  `--trace DIR` writes a torch.profiler
-chrome trace of one step (`core/profiling.device_trace`).
+`--det_capacity N` > 1 profiles the multi-candidate step (device
+pose-NMS): the KPD, the decode and the crop's batch are B*N crops; the
+crop sub-time takes each frame's candidate 0 and PnP the first B decoded
+crops, as the JAX tool does.  `--trace DIR` writes a torch.profiler chrome
+trace of one step (`core/profiling.device_trace`).
 
 Run on the card:
     python -m betapose_tpu_torch.tools.profile_pipeline [--batch 64]
@@ -111,16 +113,13 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the frames and the random weights")
     args = ap.parse_args(argv)
-    if args.det_capacity > 1:
-        raise NotImplementedError(
-            "--det_capacity > 1: the multi-candidate path is ROADMAP "
-            "queue 1, slice 2")
     device = resolve_device(args.device)
     on_card = device.type == "cuda"
     inp_h, inp_w = SIZES["crop"]
     cfg = PipelineConfig(
         reso=SIZES["reso"], inp_h=inp_h, inp_w=inp_w, out_h=inp_h // 4,
         out_w=inp_w // 4, s2d_stem=args.s2d_stem, net_type=SIZES["arch"],
+        det_capacity=args.det_capacity,
         compute_dtype="bfloat16" if on_card else "float32")
     b = args.batch
     rng = np.random.default_rng(args.seed)
@@ -166,8 +165,10 @@ def main(argv=None):
             if args.s2d_stem else (lambda: pipe.yolo(yolo_in)))
         det = pipe.det_stage(pipe.yolo, fdev)
         sub["kpd_fwd_ms"] = ms(lambda: pipe.kpd(det["crops"]))
+        boxes0 = det["boxes"] if args.det_capacity == 1 else \
+            det["boxes"][:, 0]
         sub["crop_ms"] = ms(lambda: image_ops.crop_from_dets(
-            imgs, det["boxes"], cfg.inp_h, cfg.inp_w))
+            imgs, boxes0, cfg.inp_h, cfg.inp_w))
         hm = pipe.pose_stage(pipe.kpd, det["crops"])
 
         def decode():
@@ -175,7 +176,7 @@ def main(argv=None):
                                           cfg.inp_h, cfg.inp_w, cfg.out_h,
                                           cfg.out_w)
         sub["decode_ms"] = ms(decode)
-        kp2d = decode()[1]
+        kp2d = decode()[1][:b]
         kp3d_b = pipe.kp3d[None].expand(b, -1, -1)
         sub["pnp_ms"] = ms(lambda: pnp_ops.solve_pnp(
             kp3d_b, kp2d, pipe.cam_K, iters=cfg.pnp_iters))

@@ -21,26 +21,40 @@ result line):
    the kernels' launch counts set to 0 before and read after; every kernel
    of the path must have launched once per step.  The step's own heatmaps
    go through the kernel and the plain version again, bitwise equal.
-4. Small-input reference checks: the float32 pipeline on the card against
-   the same pipeline on the CPU, and PnP on the card recovering planted
-   poses.
-5. The probe path, the second slice's: `tools/probe_vmem_chain` at batch
+4. The multi-candidate path at full width on phase 3's models and frames,
+   with the occlusion recipe (capacity 4, NMS 0.4, 2 robust PnP rounds,
+   score power 4, 10 keypoints), in both modes: device pose-NMS and host
+   pose-NMS.  Each mode: a warm-up step, timed steps with the decode
+   kernel's launch count set to 0 before and read after (once per step),
+   the capacity-1 step's keys and shapes, all finite, frames/s, peak
+   memory and dt/pt/pn.  The modes agree within the bars of
+   tests/test_pipeline.py::TestMultiCandidate, and the kernel is bitwise
+   equal to its plain version on the step's own [32,50,80,64] heatmaps,
+   timed there.
+5. Small-input reference checks: the float32 pipeline on the card against
+   the same pipeline on the CPU, for capacity 1 and for the multi-candidate
+   path in both modes (boxes, det_valid, then the CPU's heatmaps through
+   both post stages: keypoints, cam_t), and PnP on the card recovering
+   planted poses.
+6. The probe path, the second slice's: `tools/probe_vmem_chain` at batch
    96 over the three bottleneck shapes, with the launch counts set to 0
    before and read after; `bottleneck_chain` must have launched once per
    kernel call the probe made (the probe itself raises when the kernel and
    the cuDNN chain disagree; phase 2 is the check against the plain
    version).  Then the kernel, its plain version and the cuDNN chain are
    timed at each shape, with the kernel's tile, blocks and widths.
-6. The s2d stem: the float32 det stage at reso 416 with and without
+7. The s2d stem: the float32 det stage at reso 416 with and without
    `s2d_stem` on the same frames (raw heads within the JAX test's
    statistical bar, equal det_valid, boxes within 1 px), then both stems
    timed in bf16 at batch 8.
-7. `tools/profile_pipeline`, `tools/probe_conv_mfu` and
-   `tools/probe_s2d_stage` once each at reduced iterations.
+8. `tools/profile_pipeline` (capacity 1 and 4), `tools/probe_conv_mfu`
+   and `tools/probe_s2d_stage` once each at reduced iterations.
 
 Then a `{"kernels": [...]}` JSON line (per kernel: launches on its path,
-max abs error against the plain version, its time, the plain version's
-time, the memory/compute bound and the library yardstick, in ms), the
+and per path where it runs on several, max abs error against the plain
+version over every check, its time, the plain version's time, the
+memory/compute bound and the library yardstick, in ms, and per shape
+where it runs at several), the
 card line again, and as the last line `{"ok": true, "device": {...}}`.
 --profile-out writes a torch.profiler table of two main-path steps (device
 time by kernel).
@@ -49,6 +63,7 @@ time by kernel).
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import subprocess
 import sys
@@ -79,6 +94,15 @@ CHAIN_BAR = 2e-2
 CAM_K = [[572.4114, 0.0, 325.2611],
          [0.0, 573.57043, 242.04899],
          [0.0, 0.0, 1.0]]
+
+# the occlusion recipe of the JAX package (tools/occl_multiobj.py)
+OCCLUSION_RECIPE = dict(det_capacity=4, nms_thresh=0.4, confidence=0.01,
+                        pnp_robust_rounds=2, pnp_score_power=4.0,
+                        left_keypoints=10)
+# device pose-NMS against host pose-NMS: the bars of
+# tests/test_pipeline.py::TestMultiCandidate (atol; rtol 1e-3)
+MODE_BARS = {"keypoints": 1e-2, "kp_scores": 1e-4, "proposal_score": 1e-3,
+             "boxes": 1e-2, "obj_score": 1e-4}
 
 
 def fail(msg):
@@ -229,6 +253,87 @@ def phase_chain_kernel(torch, kernels):
     kernels["bottleneck_chain"]["max_abs_err"] = worst
 
 
+def check_step_outputs(torch, out, batch, path):
+    """The step's keys and shapes (the capacity-1 step's, whatever the
+    path), all finite, and a detection in every frame."""
+    shapes = {"boxes": (batch, 4), "obj_score": (batch,),
+              "det_valid": (batch,), "keypoints": (batch, 50, 2),
+              "kp_scores": (batch, 50), "proposal_score": (batch,),
+              "pose_valid": (batch,), "cam_R": (batch, 3, 3),
+              "cam_t": (batch, 3)}
+    check(set(out) == set(shapes), f"{path}: output keys {sorted(out)}")
+    for k, shp in shapes.items():
+        check(tuple(out[k].shape) == shp,
+              f"{path}: {k} has shape {out[k].shape}")
+        check(bool(torch.isfinite(out[k].float()).all()),
+              f"{path}: {k} not finite")
+    check(bool(out["det_valid"].all()),
+          f"{path}: no detection at confidence 0.01")
+
+
+def hold_decode(torch, hm, rec, path, card):
+    """The decode kernel on a path's own heatmaps: bitwise equal to its
+    plain version, then both timed at that shape beside the bytes bound
+    (each map read once, [n,K,4] written once).  Appends the shape's entry
+    to rec["per_shape"] and returns it.  The times are device times of
+    calls whose input stays in L2, as a path's freshly written heatmaps
+    do, and of calls whose input is cold in L2 (what the bytes bound
+    assumes)."""
+    from betapose_tpu_torch.ops.kernels import heatmap_decode as hd
+    k_out = hd.decode_peaks(hm)
+    p_out = hd.decode_peaks_plain(hm)
+    torch.cuda.synchronize()
+    check(torch.equal(k_out, p_out), f"decode_peaks differs from its plain "
+          f"version on the {path} path's heatmaps {list(hm.shape)}")
+    print(f"decode_peaks == plain on the {path} path's heatmaps "
+          f"{list(hm.shape)}: bitwise equal")
+    rec["max_abs_err"] = max(rec["max_abs_err"],
+                             (k_out - p_out).abs().max().item())
+    ms, k_eager = time_ms(torch, lambda: hd.decode_peaks(hm))
+    plain_ms, p_eager = time_ms(torch, lambda: hd.decode_peaks_plain(hm))
+    # cold: the calls take copies of the maps in turn, together 128 MiB or
+    # more, so each call reads its input from HBM, not from the 50 MB L2
+    copies = itertools.cycle([hm.clone() for _ in range(
+        max(2, -(-2**27 // (hm.numel() * 4))))])
+    cold_ms, _ = time_ms(torch, lambda: hd.decode_peaks(next(copies)))
+    n_bytes = hm.numel() * 4 + k_out.numel() * 4
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, hm.numel() / F32_FLOPS
+    entry = {"path": path, "shape": "x".join(map(str, hm.shape)), "ms": ms,
+             "ms_l2_cold": cold_ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops) * 1e3,
+             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    rec.setdefault("per_shape", []).append(entry)
+    print(f"decode_peaks {list(hm.shape)} ({path}): device time kernel "
+          f"{ms * 1e3:.2f} us (input cold in L2: {cold_ms * 1e3:.2f} us), "
+          f"plain {plain_ms * 1e3:.2f} us; eager per "
+          f"call kernel {k_eager * 1e3:.2f} us, plain {p_eager * 1e3:.2f} "
+          f"us; bound {entry['bound_ms'] * 1e3:.2f} us ({entry['bound_by']},"
+          f" {n_bytes / 1e6:.1f} MB) [{card}]")
+    return entry
+
+
+def profile_steps(torch, pipe, frames, step_ms, path, profile_out, mode,
+                  card):
+    """torch.profiler over 2 steps of `pipe`: the device time by kernel
+    into `profile_out` (opened with `mode`), and the device's busy share
+    against the unprofiled step time."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as p:
+        for _ in range(2):
+            pipe(frames)
+        torch.cuda.synchronize()
+    avgs = p.key_averages()
+    device_us = sum(e.self_device_time_total for e in avgs
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    table = avgs.table(sort_by="cuda_time_total", row_limit=40)
+    with open(profile_out, mode) as f:
+        f.write(f"{card}\n2 {path} steps, batch {len(frames)}\n{table}\n")
+    print(f"profile of 2 {path} steps written to {profile_out}: device busy "
+          f"{device_us / 2e3:.2f} ms per step against {step_ms:.2f} ms "
+          f"per unprofiled step ({100 * device_us / 2e3 / step_ms:.0f}%"
+          f" busy) [{card}]")
+
+
 def phase_main_path(torch, np, kernels, card, profile_out):
     from betapose_tpu_torch.core.profiling import RuntimeProfile
     from betapose_tpu_torch.eval.pipeline import PipelineConfig, PosePipeline
@@ -260,17 +365,9 @@ def phase_main_path(torch, np, kernels, card, profile_out):
 
     for name, n in launches.items():
         kernels[name]["launches"] = n
+        kernels[name]["launches_per_path"] = {"capacity_1": n}
         check(n == steps, f"{name} launched {n} times in {steps} steps")
-    shapes = {"boxes": (batch, 4), "obj_score": (batch,),
-              "det_valid": (batch,), "keypoints": (batch, 50, 2),
-              "kp_scores": (batch, 50), "proposal_score": (batch,),
-              "pose_valid": (batch,), "cam_R": (batch, 3, 3),
-              "cam_t": (batch, 3)}
-    check(set(out) == set(shapes), f"output keys {sorted(out)}")
-    for k, shp in shapes.items():
-        check(tuple(out[k].shape) == shp, f"{k} has shape {out[k].shape}")
-        check(bool(torch.isfinite(out[k].float()).all()), f"{k} not finite")
-    check(bool(out["det_valid"].all()), "no detection at confidence 0.01")
+    check_step_outputs(torch, out, batch, "main path")
     fps = batch * steps / wall
     print(f"main path: {steps} steps of batch {batch} in {wall:.3f} s, "
           f"{fps:.1f} frames/s, peak device memory "
@@ -287,49 +384,107 @@ def phase_main_path(torch, np, kernels, card, profile_out):
         det = pipe.det_stage(pipe.yolo, pipe.to_device(frames))
         hm = pipe.pose_stage(pipe.kpd, det["crops"])
     check(tuple(hm.shape) == (batch, 50, 80, 64), f"heatmaps {hm.shape}")
-    k_out = hd.decode_peaks(hm)
-    p_out = hd.decode_peaks_plain(hm)
-    torch.cuda.synchronize()
-    check(torch.equal(k_out, p_out),
-          "decode_peaks differs from its plain version on the main path's "
-          "heatmaps")
-    print("decode_peaks == plain on the main path's heatmaps: bitwise equal")
     rec = kernels["decode_peaks"]
-    rec["max_abs_err"] = max(rec["max_abs_err"],
-                             (k_out - p_out).abs().max().item())
-    rec["ms"], k_eager = time_ms(torch, lambda: hd.decode_peaks(hm))
-    rec["plain_ms"], p_eager = time_ms(
-        torch, lambda: hd.decode_peaks_plain(hm))
-    n_bytes = hm.numel() * 4 + k_out.numel() * 4
-    rec["bound_ms"] = max(n_bytes / HBM_BYTES_PER_S,
-                          hm.numel() / F32_FLOPS) * 1e3
-    rec["bound_by"] = ("bytes" if n_bytes / HBM_BYTES_PER_S
-                       >= hm.numel() / F32_FLOPS else "operations")
-    print(f"decode_peaks {list(hm.shape)}: device time kernel "
-          f"{rec['ms'] * 1e3:.2f} us, plain {rec['plain_ms'] * 1e3:.2f} us; "
-          f"eager per call kernel {k_eager * 1e3:.2f} us, plain "
-          f"{p_eager * 1e3:.2f} us; bound {rec['bound_ms'] * 1e3:.2f} us "
-          f"({rec['bound_by']}) [{card}]")
+    entry = hold_decode(torch, hm, rec, "capacity_1", card)
+    rec.update({k: entry[k] for k in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by")})
+    rec["shape"] = entry["shape"]
 
     if profile_out:
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as p:
-            for _ in range(2):
-                pipe(frames)
-            torch.cuda.synchronize()
-        avgs = p.key_averages()
-        device_us = sum(e.self_device_time_total for e in avgs
-                        if e.device_type == torch.autograd.DeviceType.CUDA)
-        table = avgs.table(sort_by="cuda_time_total", row_limit=40)
-        with open(profile_out, "w") as f:
-            f.write(f"{card}\n2 main-path steps, batch {batch}\n{table}\n")
-        step_ms = wall / steps * 1e3
-        print(f"profile of 2 steps written to {profile_out}: device busy "
-              f"{device_us / 2e3:.2f} ms per step against {step_ms:.2f} ms "
-              f"per unprofiled step ({100 * device_us / 2e3 / step_ms:.0f}%"
-              f" busy) [{card}]")
+        profile_steps(torch, pipe, frames, wall / steps * 1e3, "main-path",
+                      profile_out, "w", card)
     return pipe, frames
+
+
+
+def compare_modes(np, a, b, what):
+    """Max differences between two steps' numpy outputs; fails outside
+    MODE_BARS (and cam_t outside rtol 1e-2 where the pose is valid)."""
+    check(np.array_equal(a["pose_valid"], b["pose_valid"])
+          and np.array_equal(a["det_valid"], b["det_valid"]),
+          f"{what}: pose_valid or det_valid differ")
+    diffs = {}
+    for k, atol in MODE_BARS.items():
+        check(np.allclose(a[k], b[k], rtol=1e-3, atol=atol),
+              f"{what}: {k} differ by {np.abs(a[k] - b[k]).max():.3g}")
+        diffs[k] = float(np.abs(a[k] - b[k]).max())
+    diffs["proposal_score_rel"] = float(
+        (np.abs(a["proposal_score"] - b["proposal_score"])
+         / np.maximum(np.abs(b["proposal_score"]), 1e-6)).max())
+    v = a["pose_valid"]
+    rel = (np.abs(a["cam_t"][v] - b["cam_t"][v])
+           / np.maximum(np.abs(b["cam_t"][v]), 1e-3))
+    diffs["cam_t_rel"] = float(rel.max()) if v.any() else 0.0
+    check(diffs["cam_t_rel"] <= 1e-2,
+          f"{what}: cam_t differ by {diffs['cam_t_rel']:.3g} (relative)")
+    return diffs, int(v.sum())
+
+
+def phase_multi_path(torch, np, kernels, pipe, frames, card, profile_out):
+    """The multi-candidate path at full width on the main path's models and
+    frames, with the occlusion recipe, in both modes: device pose-NMS and
+    host pose-NMS.  Each mode: a warm-up step, then timed steps with the
+    decode kernel's launch count set to 0 before and read after (once per
+    step); the outputs' keys and shapes; dt/pt/pn.  Then the two modes
+    against each other, and the kernel on the step's own [B*N,...]
+    heatmaps."""
+    import dataclasses
+    from betapose_tpu_torch.core.profiling import RuntimeProfile
+    from betapose_tpu_torch.eval.pipeline import PosePipeline, to_numpy
+    from betapose_tpu_torch.ops.kernels import heatmap_decode as hd
+
+    batch, steps = len(frames), 6
+    cap = OCCLUSION_RECIPE["det_capacity"]
+    kp3d = pipe.kp3d.cpu().numpy()
+    rec = kernels["decode_peaks"]
+    outs = {}
+    for path, host in (("multi_device", False), ("multi_host", True)):
+        cfg = dataclasses.replace(pipe.cfg, host_pose_nms=host,
+                                  **OCCLUSION_RECIPE)
+        mpipe = PosePipeline(pipe.yolo, pipe.kpd, kp3d, np.asarray(CAM_K),
+                             cfg, device="cuda")
+        out = mpipe(frames)                              # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        hd.decode_peaks.launches = 0
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            out = mpipe(frames)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = hd.decode_peaks.launches
+        rec["launches_per_path"][path] = n
+        check(n == steps, f"decode_peaks launched {n} times in {steps} "
+              f"steps of the {path} path")
+        check_step_outputs(torch, out, batch, path)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        prof = RuntimeProfile()
+        for _ in range(3):
+            mpipe.profiled_call(frames, prof)
+        print(f"{path} path (capacity {cap}, occlusion recipe): {steps} "
+              f"steps of batch {batch} in {wall:.3f} s, "
+              f"{batch * steps / wall:.1f} frames/s, peak device memory "
+              f"{peak:.2f} GiB; decode_peaks launched {n} times; stages "
+              f"(mean of 3, synchronized) dt {prof.mean('dt') * 1e3:.2f} ms "
+              f"| pt {prof.mean('pt') * 1e3:.2f} ms | pn "
+              f"{prof.mean('pn') * 1e3:.2f} ms [{card}]")
+        outs[path] = to_numpy(out)
+        if profile_out:
+            profile_steps(torch, mpipe, frames, wall / steps * 1e3, path,
+                          profile_out, "a", card)
+
+    diffs, n_valid = compare_modes(np, outs["multi_host"],
+                                   outs["multi_device"], "multi path modes")
+    print(f"multi path, device vs host pose-NMS on the same {batch} frames: "
+          f"det_valid and pose_valid equal ({n_valid} valid poses), max "
+          + ", ".join(f"{k} {v:.3g}" for k, v in diffs.items()))
+
+    with torch.inference_mode():
+        det = mpipe.det_stage(mpipe.yolo, mpipe.to_device(frames))
+        hm = mpipe.pose_stage(mpipe.kpd, det["crops"])
+    check(tuple(hm.shape) == (batch * cap, 50, 80, 64),
+          f"multi path heatmaps {hm.shape}")
+    hold_decode(torch, hm, rec, "multi", card)
 
 
 def phase_probe_path(torch, kernels, card):
@@ -455,11 +610,15 @@ def phase_tools(card):
     t0 = time.perf_counter()
     prof = profile_pipeline.main(["--batch", "8", "--iters", "3"])
     check(prof["fps"] > 0, "profile_pipeline")
+    prof = profile_pipeline.main(["--batch", "8", "--iters", "3",
+                                  "--det_capacity", "4"])
+    check(prof["fps"] > 0, "profile_pipeline --det_capacity 4")
     mfu = probe_conv_mfu.main(["--k", "10", "--rounds", "3"])
     check(len(mfu) == 6, "probe_conv_mfu rows")
     s2d = probe_s2d_stage.main(["--k", "5", "--rounds", "3"])
     check(len(s2d) == 2, "probe_s2d_stage rows")
-    print(f"tools: profile_pipeline, probe_conv_mfu, probe_s2d_stage ran in "
+    print(f"tools: profile_pipeline (capacity 1 and 4), probe_conv_mfu, "
+          f"probe_s2d_stage ran in "
           f"{time.perf_counter() - t0:.1f} s [{card}]")
 
 
@@ -501,6 +660,46 @@ def phase_reference(torch, np):
     print(f"reference check, float32 card vs CPU at reso 64: boxes within "
           f"{box_err:.2e} px, heatmaps within {hm_err:.2e} relative, "
           f"keypoints within {kp_err.max():.2e} px")
+
+    # the multi-candidate path in float32, both modes: the det stage on the
+    # card against the CPU, then the CPU's heatmaps and candidates through
+    # both post stages
+    import dataclasses
+    from betapose_tpu_torch.eval.pipeline import to_numpy
+    for path, host in (("device", False), ("host", True)):
+        mcfg = dataclasses.replace(cfg, host_pose_nms=host,
+                                   **OCCLUSION_RECIPE)
+        mp = [PosePipeline(p.yolo, p.kpd, kp3d, np.asarray(CAM_K), mcfg,
+                           device=p.device) for p in (cpu, gpu)]
+        with torch.inference_mode():
+            mdets = [m.det_stage(m.yolo, m.to_device(frames)) for m in mp]
+            check(torch.equal(mdets[0]["det_valid"],
+                              mdets[1]["det_valid"].cpu()),
+                  f"multi ({path}): det_valid differs, card vs CPU")
+            mbox = (mdets[0]["boxes"] - mdets[1]["boxes"].cpu()).abs().max()
+            check(mbox < 1e-2, f"multi ({path}): boxes differ by {mbox:.3g}")
+            mhm = mp[0].pose_stage(mp[0].kpd, mdets[0]["crops"])
+            ins = [(mhm, mdets[0]),
+                   (mhm.cuda(), {k: v.cuda() for k, v in mdets[0].items()})]
+            mouts = [to_numpy(m._post_device(m._device_outputs(h, d)))
+                     for m, (h, d) in zip(mp, ins)]
+        check(all(np.array_equal(mouts[0][k], mouts[1][k])
+                  for k in ("det_valid", "pose_valid", "boxes")),
+              f"multi ({path}): det_valid, pose_valid or boxes differ after "
+              f"pose-NMS, card vs CPU")
+        mkp = np.abs(mouts[0]["keypoints"] - mouts[1]["keypoints"]).max()
+        check(mkp < 1e-3, f"multi ({path}): keypoints differ by {mkp:.3g}")
+        v = mouts[0]["pose_valid"]
+        mt = (np.abs(mouts[0]["cam_t"][v] - mouts[1]["cam_t"][v])
+              / np.maximum(np.abs(mouts[0]["cam_t"][v]), 1e-3))
+        mt = float(mt.max()) if v.any() else 0.0
+        check(mt <= 1e-2, f"multi ({path}): cam_t differs by {mt:.3g} "
+              f"(relative), card vs CPU")
+        print(f"reference check, float32 multi-candidate ({path} pose-NMS, "
+              f"capacity {OCCLUSION_RECIPE['det_capacity']}) card vs CPU at "
+              f"reso 64: boxes within {mbox:.2e} px, det_valid and pose_valid"
+              f" equal ({int(v.sum())} valid), keypoints within {mkp:.2e} px,"
+              f" cam_t within {mt:.2e} relative")
 
     # best box: exact objectness ties go to the first row on the card too
     from betapose_tpu_torch.ops.boxes import best_box
@@ -602,6 +801,8 @@ def main():
     phase_chain_kernel(torch, kernels)
     pipe, frames = phase_main_path(torch, np, kernels, card,
                                    args.profile_out)
+    phase_multi_path(torch, np, kernels, pipe, frames, card,
+                     args.profile_out)
     phase_reference(torch, np)
     phase_probe_path(torch, kernels, card)
     phase_s2d_stem(torch, np, pipe, frames, card)

@@ -69,9 +69,12 @@ def test_eval_cli_refuses_what_it_cannot_run(tmp_path):
         betapose_evaluate.main(_argv(sixd, out, "--yolo_weights",
                                      str(tmp_path / "missing.weights")))
     with pytest.raises(NotImplementedError):
-        betapose_evaluate.main(_argv(sixd, out, "--det_capacity", "3"))
-    with pytest.raises(NotImplementedError):
         betapose_evaluate.main(_argv(sixd, out, "--host_loader", "native"))
+    # the multi-candidate path, refused before it was ported, now runs
+    weights = _zero_yolo_weights(tmp_path / "zero.weights")
+    stats = betapose_evaluate.main(_argv(sixd, out, "--det_capacity", "3",
+                                         "--yolo_weights", weights))
+    assert set(stats) >= {"mean_add", "mean_2d_acc", "mean_iou", "fps"}
 
 
 def test_loader_threads_and_procs_give_the_same_padded_batches(tmp_path):

@@ -301,9 +301,26 @@ def test_pipeline_needs_cuda_unless_cpu_is_asked_for(setup):
 
 @pytest.mark.parametrize("option", [
     dict(det_capacity=3), dict(host_pose_nms=True), dict(net_type="hgPRM")])
-def test_options_outside_the_slice_raise(option):
-    with pytest.raises(NotImplementedError):
-        port_pipe.make_pose_step(port_cfg(**option))
+def test_options_outside_the_slice_raise(setup, option):
+    """hgPRM (a later slice) raises.  The multi-candidate options, outside
+    the first slice, now run: det_capacity=3 through `make_pose_step`, and
+    host_pose_nms=True, which with capacity 1 runs the capacity-1 step
+    (as in the JAX package)."""
+    if option.get("net_type") == "hgPRM":
+        with pytest.raises(NotImplementedError):
+            port_pipe.make_pose_step(port_cfg(**option))
+        return
+    _, _, _, yolo, kpd, kp3d, frames = setup
+    pipe = port_pipe.PosePipeline(yolo, kpd, kp3d, CAM_K, port_cfg(**option),
+                                  device="cpu")
+    step = port_pipe.make_pose_step(pipe.cfg)
+    with torch.inference_mode():
+        out = step(pipe.yolo, pipe.kpd, pipe.to_device(frames), pipe.kp3d,
+                   pipe.cam_K)
+    ref = pipe(frames)
+    assert set(out) == set(ref) and out["boxes"].shape == (2, 4)
+    for k in out:
+        assert torch.equal(out[k], ref[k]), k
 
 
 def test_config_fields_mirror_jax():

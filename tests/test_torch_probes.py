@@ -100,9 +100,18 @@ def test_profile_pipeline_document(capsys, tmp_path, tiny_pipeline):
     assert (tmp_path / "trace.json").stat().st_size > 0
 
 
-def test_profile_pipeline_det_capacity_raises():
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        profile_pipeline.main(TINY + ["--det_capacity", "2"])
+def test_profile_pipeline_det_capacity_raises(capsys, tiny_pipeline):
+    """`--det_capacity` > 1, refused before the multi-candidate path was
+    ported, now profiles that path: the same document, on B*N crops."""
+    out = profile_pipeline.main(TINY + ["--det_capacity", "2"])
+    assert _json_lines(capsys) == [out]
+    assert out["det_capacity"] == 2 and out["device"] == "cpu"
+    assert set(out["stage_ms"]) == {"dt", "pt", "pn"}
+    assert set(out["sub_ms"]) == {"resize_ms", "yolo_fwd_ms", "kpd_fwd_ms",
+                                  "crop_ms", "decode_ms", "pnp_ms"}
+    flops = out["flops_per_batch"]
+    assert flops["step"] >= flops["det"] + flops["pose"] > 0
+    assert out["mfu_step"] is None
 
 
 def test_tools_need_cuda_unless_cpu_is_asked_for():
