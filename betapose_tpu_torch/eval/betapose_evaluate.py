@@ -9,7 +9,8 @@ reference `betapose_evaluate.py`: the same flags plus `--device` (default
 Usage:
   python -m betapose_tpu_torch.eval.betapose_evaluate \
       --indir <sixd>/test/01/rgb --outdir out/ --obj_id 1 \
-      --sixd_base <sixd> [--yolo_weights w.weights] [--kpd_weights m.pkl] \
+      --sixd_base <sixd> [--yolo_weights w.weights] \
+      [--kpd_weights m.pkl|m.npz] [--netType resnet101|resnet50|hgPRM] \
       [--device cuda|cpu]
 """
 
@@ -31,6 +32,7 @@ from betapose_tpu_torch.eval import results as results_mod
 from betapose_tpu_torch.eval.pipeline import PipelineConfig, PosePipeline
 from betapose_tpu_torch.geometry import metrics
 from betapose_tpu_torch.geometry.model3d import Model3D
+from betapose_tpu_torch.models import hgprm as hgprm_mod
 from betapose_tpu_torch.models import kpd as kpd_mod
 from betapose_tpu_torch.models import yolov3 as yolo_mod
 from betapose_tpu_torch.models.darknet_cfg import make_yolov3_cfg
@@ -78,20 +80,25 @@ def load_sixd_models(base_path, obj_id, total_kp=TOTAL_KP_NUMBER):
 def build_pipeline(cfg: Config, args, kp_vertices, cam_K,
                    left_keypoints: int | None = None, device=None):
     """The networks (weights from disk, else a seeded random init in smoke
-    mode), batch norm folded, wrapped in a `PosePipeline` on `device`
-    (None: cfg.runtime.device).
+    mode), wrapped in a `PosePipeline` on `device` (None:
+    cfg.runtime.device).  YOLO's and FastPose's batch norms are folded;
+    PyraNet's (`--netType hgPRM`) are not, as in the JAX package: its
+    pre-activation batch norms sit before a ReLU, where no conv can take
+    them.
 
     The conv path runs bf16 on the card and float32 on the CPU: torch's CPU
     bf16 convolutions are slow, and their first call now and then returns
-    NaN (torch 2.13, CPU build)."""
+    NaN (torch 2.13, CPU build).  PyraNet runs float32 on both."""
     device = resolve_device(cfg.runtime.device if device is None else device)
     arch = cfg.model.net_type
-    if arch == "hgPRM":
-        raise NotImplementedError("--netType hgPRM is ROADMAP slice 3")
-    if arch not in ("resnet101", "resnet50"):
+    if arch not in ("resnet101", "resnet50", "hgPRM"):
         raise SystemExit(
             f"unsupported --netType {arch!r} for evaluation: the pipeline "
-            "serves FastPose (resnet101, resnet50)")
+            "serves FastPose (resnet101, resnet50) and hgPRM")
+    hg_kwargs = (dict(n_feats=cfg.model.n_feats, n_stack=cfg.model.n_stack,
+                      n_residual=args.nResidual, base_width=args.baseWidth,
+                      cardinality=args.cardinality)
+                 if arch == "hgPRM" else {})
 
     yolo_cfg_text = (open(args.yolo_cfg).read() if args.yolo_cfg
                      else make_yolov3_cfg(num_classes=1,
@@ -116,7 +123,8 @@ def build_pipeline(cfg: Config, args, kp_vertices, cam_K,
 
     kpd_weights = args.kpd_weights or ckpt.default_kpd_path(cfg.obj_id)
     if os.path.exists(kpd_weights):
-        kpd = ckpt.load_kpd_checkpoint(kpd_weights, cfg.model.n_classes, arch)
+        kpd = ckpt.load_kpd_checkpoint(kpd_weights, cfg.model.n_classes, arch,
+                                       **hg_kwargs)
         print("Loading KPD weights from", kpd_weights)
     elif args.kpd_weights:
         raise FileNotFoundError(
@@ -124,8 +132,12 @@ def build_pipeline(cfg: Config, args, kp_vertices, cam_K,
     else:
         print(f"WARNING: KPD weights {kpd_weights} not found; "
               "using random init (smoke mode)")
-        kpd = kpd_mod.FastPose(cfg.model.n_classes, arch,
-                               torch.Generator().manual_seed(1))
+        gen = torch.Generator().manual_seed(1)
+        kpd = (hgprm_mod.PyraNet(cfg.model.n_classes, generator=gen,
+                                 **hg_kwargs) if arch == "hgPRM"
+               else kpd_mod.FastPose(cfg.model.n_classes, arch, gen))
+    if arch != "hgPRM":
+        kpd = kpd_mod.fold_bn(kpd)
 
     pcfg = PipelineConfig(
         reso=reso,
@@ -146,7 +158,7 @@ def build_pipeline(cfg: Config, args, kp_vertices, cam_K,
         net_type=arch,
         compute_dtype="bfloat16" if device.type == "cuda" else "float32")
     return PosePipeline(
-        yolo_mod.fold_bn(yolo), kpd_mod.fold_bn(kpd), kp_vertices, cam_K,
+        yolo_mod.fold_bn(yolo), kpd, kp_vertices, cam_K,
         pcfg, left_keypoints=left_keypoints, device=device)
 
 

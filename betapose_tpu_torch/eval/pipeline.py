@@ -10,7 +10,9 @@ in three stages: detection + crop (the reference's 'dt' bucket), KPD
 heatmaps ('pt') and decode + NMS + PnP ('pn').  PyTorch runs eagerly, so a
 step is the three stages called in turn; nothing is compiled.  The conv
 path runs in `cfg.compute_dtype` (bf16 on the card, with f32 accumulation);
-box and crop coordinates, decode and PnP run in float32.
+box and crop coordinates, decode and PnP run in float32.  YOLO's bf16
+layers keep float32 sums, bias and activation and round once, as the JAX
+`_conv_layer` does (`models/yolov3.conv_bf16`).
 
 With `det_capacity = N > 1` (the multi-candidate path, for crowded and
 occluded scenes) the det stage keeps up to N greedy-NMS'd boxes per frame
@@ -22,8 +24,11 @@ with the reference's loop (`ops/pose_nms.pose_nms`), then runs one batched
 PnP.  Every mode returns the same per-frame keys.
 
 `s2d_stem=True` runs YOLO's first two layers through the exact
-space-to-depth rewrite (`models/stem_s2d.py`).  `net_type="hgPRM"` raises
-`NotImplementedError`: it is ROADMAP slice 3.
+space-to-depth rewrite (`models/stem_s2d.py`).  `net_type="hgPRM"` serves
+PyraNet (`models/hgprm.py`) in the pose stage instead of FastPose: in
+float32 whatever `compute_dtype` says (flip-TTA included), on the det
+stage's crops cast to float32, as the JAX package does; on the card its
+float32 convs and matmuls run with TF32 off (`core/device.py`).
 """
 
 from __future__ import annotations
@@ -76,16 +81,15 @@ class PipelineConfig:
     #                               # host; False = the fixed-trip device
     #                               # pose-NMS
     flip_tta: bool = False          # average KPD heatmaps with the mirror
-    net_type: str = "resnet101"     # FastPose resnet50/101; hgPRM: slice 3
+    net_type: str = "resnet101"     # FastPose resnet50/101, or hgPRM
+    #                               # (PyraNet, float32)
 
 
 def check_config(cfg: PipelineConfig) -> None:
     """Raise on options the port does not run, or that are malformed."""
     if cfg.det_capacity < 1:
         raise ValueError(f"det_capacity must be >= 1, got {cfg.det_capacity}")
-    if cfg.net_type == "hgPRM":
-        raise NotImplementedError("net_type='hgPRM' is ROADMAP slice 3")
-    if cfg.net_type not in ("resnet50", "resnet101"):
+    if cfg.net_type not in ("resnet50", "resnet101", "hgPRM"):
         raise ValueError(f"unsupported net_type {cfg.net_type!r}")
     if cfg.preproc not in ("stretch", "letterbox"):
         raise ValueError(f"unknown preproc {cfg.preproc!r}")
@@ -142,6 +146,8 @@ def make_pose_stage(cfg: PipelineConfig):
     """Stage 2, KPD heatmaps: (kpd, crops) -> [B,K,H,W] float32."""
 
     def pose_stage(kpd, crops):
+        if cfg.net_type == "hgPRM":
+            crops = crops.float()   # PyraNet runs float32 (JAX pipeline)
         hm = kpd(crops)
         if cfg.flip_tta:
             # mirrored forward, un-mirrored and averaged (reference
@@ -325,7 +331,7 @@ def make_candidates_step(cfg: PipelineConfig):
     return step
 
 
-def _prepare(model, device, dtype):
+def _prepare(model, device, dtype=None):
     model = model.to(device=device, dtype=dtype).eval()
     if device.type == "cuda":
         model = model.to(memory_format=torch.channels_last)
@@ -337,9 +343,13 @@ class PosePipeline:
     batches.  device=None means CUDA and raises without it; the CPU runs
     only when asked for (device="cpu").
 
-    yolo: a `models.yolov3.Darknet`; kpd: a `models.kpd.FastPose`.  The
-    networks are moved to the device and the compute dtype as they are (the
-    callers fold batch norm first, as the JAX callers do).
+    yolo: a `models.yolov3.Darknet`; kpd: a `models.kpd.FastPose`, or a
+    `models.hgprm.PyraNet` with cfg.net_type="hgPRM".  The networks are
+    moved to the device as they are (the callers fold FastPose's and YOLO's
+    batch norms first, as the JAX callers do).  FastPose is cast to the
+    compute dtype; PyraNet stays float32; YOLO keeps float32 parameters and
+    runs in the dtype of its input, the compute dtype (its bf16 layers
+    round their weights to bf16 themselves, `models/yolov3.ConvLayer`).
 
     A step is a device part (`_run_device`: the whole step, or in host
     pose-NMS mode the decoded candidates) and a host part (`_post_device`:
@@ -357,9 +367,10 @@ class PosePipeline:
                 self.cfg, left_keypoints=min(left_keypoints, self.cfg.n_kp))
         check_config(self.cfg)
         self.device = resolve_device(device)
-        cdtype = _DTYPES[self.cfg.compute_dtype]
-        self.yolo = _prepare(yolo, self.device, cdtype)
-        self.kpd = _prepare(kpd, self.device, cdtype)
+        self.yolo = _prepare(yolo, self.device)
+        self.kpd = _prepare(kpd, self.device,
+                            torch.float32 if self.cfg.net_type == "hgPRM"
+                            else _DTYPES[self.cfg.compute_dtype])
         self.kp3d = torch.as_tensor(np.asarray(kp3d), dtype=torch.float32,
                                     device=self.device)
         self.cam_K = torch.as_tensor(np.asarray(cam_K), dtype=torch.float32,

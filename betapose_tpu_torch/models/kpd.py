@@ -249,17 +249,3 @@ def state_dict_from_jax(params) -> dict:
     put("conv_out.bias", params["conv_out"]["b"])
     return sd
 
-
-def from_state_dict(state_dict, n_classes: int = 50,
-                    arch: str = "resnet101") -> FastPose:
-    """A FastPose loaded from a reference-named state_dict; 'module.' or
-    'model.' prefixes (DataParallel checkpoints) are stripped."""
-    sd = {}
-    for k, v in state_dict.items():
-        for pref in ("module.", "model."):
-            if k.startswith(pref):
-                k = k[len(pref):]
-        sd[k] = v
-    model = FastPose(n_classes, arch)
-    model.load_state_dict(sd)
-    return model

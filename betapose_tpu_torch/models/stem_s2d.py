@@ -27,7 +27,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from betapose_tpu_torch.models.yolov3 import LEAKY_SLOPE
+from betapose_tpu_torch.models.yolov3 import (LEAKY_SLOPE, bf16_values,
+                                              cached, conv_bf16)
 
 
 def space_to_depth2(x):
@@ -128,19 +129,6 @@ def _conv_s2d_nchw(xp, w_oihw, bias, pads):
     return F.conv2d(F.pad(xp, (pb, pa, pb, pa)), w_oihw, bias)
 
 
-def _cached(owner, sources, build):
-    """build()'s result, kept on `owner` until one of the `sources` tensors
-    is replaced or written in place (a moved or reloaded network repacks)."""
-    token = tuple((t.data_ptr(), t._version, t.dtype, t.device)
-                  for t in sources)
-    hit = getattr(owner, "_s2d_packed", None)
-    if hit is None or hit[0] != token:
-        with torch.no_grad():
-            hit = (token, build())
-        owner._s2d_packed = hit
-    return hit[1]
-
-
 def _memory_format(t):
     """The layout of the conv weight t (channels_last on the card)."""
     return (torch.channels_last if t.is_contiguous(
@@ -154,7 +142,7 @@ def _stride2_packed(conv: torch.nn.Conv2d):
         packed, pads = pack_stride2_conv_weights(_hwio(conv.weight))
         return (_oihw(packed).to(memory_format=_memory_format(conv.weight)),
                 pads)
-    return _cached(conv, (conv.weight,), build)
+    return cached(conv, "_s2d_packed", (conv.weight,), build)
 
 
 def conv_stride2_via_s2d(x, w):
@@ -205,15 +193,31 @@ def _stem_packed(model):
     def build():
         p = pack_stem_params(model)
         fmt = _memory_format(c0.weight)
-        return {"w1": _oihw(p["w1"]).to(memory_format=fmt), "b1": p["b1"],
-                "w2": _oihw(p["w2"]).to(memory_format=fmt), "b2": p["b2"]}
-    return _cached(model, (c0.weight, c0.bias, c1.weight, c1.bias), build)
+        return _with_bf16_values(
+            {"w1": _oihw(p["w1"]).to(memory_format=fmt), "b1": p["b1"],
+             "w2": _oihw(p["w2"]).to(memory_format=fmt), "b2": p["b2"]})
+    return cached(model, "_s2d_packed",
+                  (c0.weight, c0.bias, c1.weight, c1.bias), build)
+
+
+def _with_bf16_values(packed):
+    """The OIHW packed stem with its weights rounded to bf16 beside them
+    (held in float32), for bf16 inputs."""
+    return {**packed, "w1_bf16": bf16_values(packed["w1"]),
+            "w2_bf16": bf16_values(packed["w2"])}
 
 
 def _stem_nchw(packed, x_nchw):
-    y = F.conv2d(_space_to_depth2_nchw(x_nchw), packed["w1"], packed["b1"],
-                 padding=1)
-    y = F.leaky_relu(y, LEAKY_SLOPE)
+    xp = _space_to_depth2_nchw(x_nchw)
+    if x_nchw.dtype == torch.bfloat16:
+        # the JAX stem's numerics: float32 sums, bias and leaky, each conv
+        # rounded to bf16 once (`yolov3.conv_bf16`)
+        y = conv_bf16(xp, packed["w1_bf16"], packed["b1"], padding=1,
+                      activation="leaky")
+        return conv_bf16(F.pad(y, (1, 0, 1, 0)), packed["w2_bf16"],
+                         packed["b2"], activation="leaky")
+    y = F.leaky_relu(F.conv2d(xp, packed["w1"], packed["b1"], padding=1),
+                     LEAKY_SLOPE)
     z = _conv_s2d_nchw(y, packed["w2"], packed["b2"], (1, 0))
     return F.leaky_relu(z, LEAKY_SLOPE)
 
@@ -221,8 +225,8 @@ def _stem_nchw(packed, x_nchw):
 def stem_forward(packed, x):
     """x: [B,H,W,3] -> layer-1 output [B,H/2,W/2,C1] (exact), from the
     HWIO `pack_stem_params` dict."""
-    oihw = {"w1": _oihw(packed["w1"]), "b1": packed["b1"],
-            "w2": _oihw(packed["w2"]), "b2": packed["b2"]}
+    oihw = _with_bf16_values({"w1": _oihw(packed["w1"]), "b1": packed["b1"],
+                              "w2": _oihw(packed["w2"]), "b2": packed["b2"]})
     return _stem_nchw(oihw, x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
 
 

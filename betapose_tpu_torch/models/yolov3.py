@@ -22,10 +22,15 @@ ROADMAP slice 5.
   weights in OIHW order (torch's own layout).
 - `params_from_jax` loads the JAX package's per-layer param list (numpy,
   HWIO weights) into the module: the bridge the tests use.
+- The parameters stay float32 and the network runs in its input's dtype.
+  A bf16 input gets the JAX `_conv_layer`'s numerics in every layer: bf16
+  weights, float32 sums, bias and activation, one rounding to bf16
+  (`conv_bf16`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import io
@@ -128,8 +133,68 @@ def build_spec(cfg) -> NetworkSpec:
     return NetworkSpec(tuple(layers), frozenset(needed), net_info)
 
 
+def cached(owner, attr, sources, build):
+    """build()'s result, kept on `owner` as `attr` until one of the
+    `sources` tensors is replaced or written in place (a moved or reloaded
+    network builds it again).  Tensors made under `torch.inference_mode`
+    keep no version counter: for those only a replacement is seen."""
+    token = tuple((t.data_ptr(), -1 if t.is_inference() else t._version,
+                   t.dtype, t.device) for t in sources)
+    hit = getattr(owner, attr, None)
+    if hit is None or hit[0] != token:
+        with torch.no_grad():
+            hit = (token, build())
+        setattr(owner, attr, hit)
+    return hit[1]
+
+
+def bf16_values(w):
+    """w rounded to bfloat16 (the JAX `w.astype(bfloat16)`), held in
+    float32, cached on w's owner by the caller."""
+    return w.detach().to(torch.bfloat16).float()
+
+
+@contextlib.contextmanager
+def _tf32_convs():
+    """Let cuDNN run float32 convolutions on TF32 tensor cores inside the
+    block (the port pins TF32 off everywhere else, `core/device.py`).
+
+    This is how a bf16 conv with float32 sums is had in PyTorch, whose bf16
+    convs round their output to bf16: a bf16 value is exact in TF32 (7
+    against 10 mantissa bits), so the float32 conv of bf16-valued operands
+    forms exact products and sums them in float32, the arithmetic of the
+    JAX `preferred_element_type=float32`."""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+def conv_bf16(x, w32, bias, stride=1, padding=0, activation="linear",
+              bn=None):
+    """The JAX `_conv_layer` on bf16 `x`: the conv of x and the bf16-valued
+    float32 weight `w32` with float32 sums, the float32 bias or batch norm
+    `bn`, the activation in float32, and one rounding to bf16 at the
+    end."""
+    with _tf32_convs():
+        y = F.conv2d(x.float(), w32, None if bias is None else bias.float(),
+                     stride, padding)
+    if bn is not None:
+        y = bn(y)
+    if activation == "leaky":
+        y = F.leaky_relu(y, LEAKY_SLOPE)
+    return y.to(torch.bfloat16)
+
+
 class ConvLayer(nn.Module):
-    """darknet [convolutional]: conv, batch norm or bias, activation."""
+    """darknet [convolutional]: conv, batch norm or bias, activation.
+
+    A bf16 input runs the JAX package's numerics (`conv_bf16`): the layer's
+    parameters stay float32 and its weight is rounded to bf16 once, cached
+    (`bf16_values`); the output is bf16, rounded once.  A float32 input
+    runs the float32 layer."""
 
     def __init__(self, l: LayerSpec):
         super().__init__()
@@ -154,12 +219,21 @@ class ConvLayer(nn.Module):
         self.conv, self.bn = folded, None
 
     def forward(self, x):
+        if x.dtype == torch.bfloat16:
+            return self._forward_bf16(x)
         y = self.conv(x)
         if self.bn is not None:
             y = self.bn(y)
         if self.activation == "leaky":
             y = F.leaky_relu(y, LEAKY_SLOPE)
         return y
+
+    def _forward_bf16(self, x):
+        conv = self.conv
+        w32 = cached(self, "_w_bf16", (conv.weight,),
+                     lambda: bf16_values(conv.weight))
+        return conv_bf16(x, w32, conv.bias, conv.stride, conv.padding,
+                         self.activation, self.bn)
 
 
 def decode_head(x_nhwc, anchors, num_classes, reso):

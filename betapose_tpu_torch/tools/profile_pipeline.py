@@ -152,8 +152,7 @@ def main(argv=None):
     sub = {}
     with torch.inference_mode():
         fdev = pipe.to_device(frames)
-        cdtype = next(pipe.yolo.parameters()).dtype
-        imgs = fdev.to(cdtype) / 255.0
+        imgs = fdev.to(getattr(torch, cfg.compute_dtype)) / 255.0
 
         def ms(fn):
             return chain_ms(fn, device, k=args.iters, rounds=3, warmup=1)

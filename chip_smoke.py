@@ -31,23 +31,45 @@ result line):
    tests/test_pipeline.py::TestMultiCandidate, and the kernel is bitwise
    equal to its plain version on the step's own [32,50,80,64] heatmaps,
    timed there.
-5. Small-input reference checks: the float32 pipeline on the card against
+5. The hgPRM path at full width: phase 3's YOLOv3-416 and frames ->
+   PyraNet (nFeats 256, nStack 4, 50 keypoints, 320x256 crops, float32
+   with TF32 off, seeded weights) -> peak decode -> PnP through
+   `PosePipeline(net_type="hgPRM")`.  A warm-up step, timed steps with the
+   decode kernel's launch count set to 0 before and read after (once per
+   step), the capacity-1 step's keys and shapes, frames/s, peak memory,
+   dt/pt/pn, and the kernel bitwise equal to its plain version on the
+   step's own [8,50,80,64] heatmaps.
+6. Small-input reference checks: the float32 pipeline on the card against
    the same pipeline on the CPU, for capacity 1 and for the multi-candidate
    path in both modes (boxes, det_valid, then the CPU's heatmaps through
-   both post stages: keypoints, cam_t), and PnP on the card recovering
-   planted poses.
-6. The probe path, the second slice's: `tools/probe_vmem_chain` at batch
+   both post stages: keypoints, cam_t), for hgPRM (reso 64, 64x64 crops,
+   nFeats 16, nStack 2: det_valid, boxes, heatmaps, keypoints, cam_t), and
+   PnP on the card recovering planted poses.
+7. The probe path, the second slice's: `tools/probe_vmem_chain` at batch
    96 over the three bottleneck shapes, with the launch counts set to 0
    before and read after; `bottleneck_chain` must have launched once per
    kernel call the probe made (the probe itself raises when the kernel and
    the cuDNN chain disagree; phase 2 is the check against the plain
    version).  Then the kernel, its plain version and the cuDNN chain are
    timed at each shape, with the kernel's tile, blocks and widths.
-7. The s2d stem: the float32 det stage at reso 416 with and without
+8. The s2d stem: the float32 det stage at reso 416 with and without
    `s2d_stem` on the same frames (raw heads within the JAX test's
    statistical bar, equal det_valid, boxes within 1 px), then both stems
    timed in bf16 at batch 8.
-8. `tools/profile_pipeline` (capacity 1 and 4), `tools/probe_conv_mfu`
+9. YOLO's bf16 layers, which round once (float32 sums, bias and leaky,
+   the JAX `_conv_layer`'s numerics, through TF32 convs of bf16 values):
+   two layers on the card against the same layers on the CPU (at least
+   99% of outputs bitwise equal, the rest 1 bf16 ulp apart or within 1e-5
+   of the largest output: float32 summation order); the
+   bf16 YOLO forward at batch 8 (eager and from a CUDA graph) with the
+   earlier layer (an inline copy of its three-rounding epilogue, on a bf16
+   copy of the network) and with the current one, in turns; and
+   how often the old layer changes det_valid and the best box against the
+   new one, and each against the float32 network, on the same 8 frames
+   (with random weights the best box is an argmax over near-tied
+   objectness scores, so the raw heads' distance from the float32
+   network's is printed as well).
+10. `tools/profile_pipeline` (capacity 1 and 4), `tools/probe_conv_mfu`
    and `tools/probe_s2d_stage` once each at reduced iterations.
 
 Then a `{"kernels": [...]}` JSON line (per kernel: launches on its path,
@@ -56,13 +78,14 @@ version over every check, its time, the plain version's time, the
 memory/compute bound and the library yardstick, in ms, and per shape
 where it runs at several), the
 card line again, and as the last line `{"ok": true, "device": {...}}`.
---profile-out writes a torch.profiler table of two main-path steps (device
-time by kernel).
+--profile-out writes a torch.profiler table of two steps of each of the
+capacity-1, multi-candidate and hgPRM paths (device time by kernel).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import itertools
 import json
 import subprocess
@@ -487,6 +510,121 @@ def phase_multi_path(torch, np, kernels, pipe, frames, card, profile_out):
     hold_decode(torch, hm, rec, "multi", card)
 
 
+def phase_hgprm_path(torch, np, kernels, pipe, frames, card, profile_out):
+    """The hgPRM path at full width: the main path's YOLO and frames ->
+    PyraNet at the opt.py widths (nFeats 256, nStack 4, 50 keypoints),
+    float32 with TF32 off, seeded weights -> decode -> PnP."""
+    import dataclasses
+    from betapose_tpu_torch.core.profiling import RuntimeProfile
+    from betapose_tpu_torch.eval.pipeline import PosePipeline
+    from betapose_tpu_torch.models import hgprm
+    from betapose_tpu_torch.ops.kernels import heatmap_decode as hd
+
+    batch, steps = len(frames), 6
+    t0 = time.perf_counter()
+    net = hgprm.PyraNet(50, n_feats=256, n_stack=4, n_residual=1,
+                        base_width=9, cardinality=5,
+                        generator=torch.Generator().manual_seed(2))
+    hpipe = PosePipeline(pipe.yolo, net, pipe.kp3d.cpu().numpy(),
+                         np.asarray(CAM_K),
+                         dataclasses.replace(pipe.cfg, net_type="hgPRM"),
+                         device="cuda")
+    check(next(hpipe.kpd.parameters()).dtype == torch.float32
+          and not torch.backends.cudnn.allow_tf32
+          and not torch.backends.cuda.matmul.allow_tf32,
+          "hgPRM must run float32 with TF32 off")
+    print(f"hgPRM path: PyraNet built in {time.perf_counter() - t0:.1f} s "
+          f"({sum(p.numel() for p in net.parameters()) / 1e6:.2f} M "
+          f"parameters, nFeats 256, nStack 4, float32, BN not folded)")
+    out = hpipe(frames)                                  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    hd.decode_peaks.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        out = hpipe(frames)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = hd.decode_peaks.launches
+    rec = kernels["decode_peaks"]
+    rec["launches_per_path"]["hgPRM"] = n
+    check(n == steps, f"decode_peaks launched {n} times in {steps} steps "
+          f"of the hgPRM path")
+    check_step_outputs(torch, out, batch, "hgPRM path")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    prof = RuntimeProfile()
+    for _ in range(3):
+        hpipe.profiled_call(frames, prof)
+    print(f"hgPRM path: {steps} steps of batch {batch} in {wall:.3f} s, "
+          f"{batch * steps / wall:.1f} frames/s, peak device memory "
+          f"{peak:.2f} GiB; decode_peaks launched {n} times; stages (mean "
+          f"of 3, synchronized) dt {prof.mean('dt') * 1e3:.2f} ms | pt "
+          f"{prof.mean('pt') * 1e3:.2f} ms | pn {prof.mean('pn') * 1e3:.2f}"
+          f" ms [{card}]")
+    with torch.inference_mode():
+        det = hpipe.det_stage(hpipe.yolo, hpipe.to_device(frames))
+        hm = hpipe.pose_stage(hpipe.kpd, det["crops"])
+    check(tuple(hm.shape) == (batch, 50, 80, 64) and hm.dtype == torch.float32,
+          f"hgPRM heatmaps {hm.shape} {hm.dtype}")
+    hold_decode(torch, hm, rec, "hgPRM", card)
+    if profile_out:
+        profile_steps(torch, hpipe, frames, wall / steps * 1e3, "hgPRM",
+                      profile_out, "a", card)
+
+
+def phase_hgprm_reference(torch, np):
+    """hgPRM in float32 at a small size, the card against the CPU: the
+    same bars as the capacity-1 check (det_valid equal, then boxes,
+    heatmaps, and the CPU's heatmaps through both post stages: keypoints,
+    scores, and cam_t)."""
+    import copy
+    from betapose_tpu_torch.eval.pipeline import PipelineConfig, PosePipeline
+    from betapose_tpu_torch.models import hgprm
+    rng = np.random.default_rng(3)
+    frames = rng.integers(0, 256, (2, 96, 128, 3), dtype=np.uint8)
+    kp3d = rng.standard_normal((50, 3)) * 0.05
+    cfg = PipelineConfig(reso=64, inp_h=64, inp_w=64, out_h=16, out_w=16,
+                         compute_dtype="float32", net_type="hgPRM")
+    yolo, _ = build_models(torch, 64, 50, "resnet50", frames, "cpu")
+    net = hgprm.PyraNet(50, n_feats=16, n_stack=2,
+                        generator=torch.Generator().manual_seed(4))
+    cpu = PosePipeline(yolo, net, kp3d, np.asarray(CAM_K), cfg, device="cpu")
+    gpu = PosePipeline(copy.deepcopy(yolo), copy.deepcopy(net), kp3d,
+                       np.asarray(CAM_K), cfg, device="cuda")
+    with torch.inference_mode():
+        dets = [p.det_stage(p.yolo, p.to_device(frames)) for p in (cpu, gpu)]
+        check(torch.equal(dets[0]["det_valid"], dets[1]["det_valid"].cpu()),
+              "hgPRM: det_valid differs between the card and the CPU")
+        box_err = (dets[0]["boxes"] - dets[1]["boxes"].cpu()).abs().max()
+        check(box_err < 1e-2, f"hgPRM: boxes differ by {box_err:.3g} px")
+        # the same crops into both networks, so the heatmaps compare the
+        # networks alone
+        crops = dets[0]["crops"]
+        hms = [cpu.pose_stage(cpu.kpd, crops),
+               gpu.pose_stage(gpu.kpd, crops.cuda())]
+        hm_err = ((hms[0] - hms[1].cpu()).abs().max() / hms[0].abs().max())
+        check(hm_err < 1e-3, f"hgPRM: heatmaps differ by {hm_err:.3g} "
+              f"(relative)")
+        outs = [cpu.post_stage(hms[0], dets[0], cpu.kp3d, cpu.cam_K),
+                gpu.post_stage(hms[0].cuda(), {k: v.cuda().clone() for k, v
+                                               in dets[0].items()},
+                               gpu.kp3d, gpu.cam_K)]
+        kp_err = (outs[0]["keypoints"] - outs[1]["keypoints"].cpu()).abs()
+        check(kp_err.max() < 1e-3, f"hgPRM: keypoints differ by "
+              f"{kp_err.max()}")
+        check(torch.equal(outs[0]["kp_scores"], outs[1]["kp_scores"].cpu()),
+              "hgPRM: keypoint scores differ")
+        t_cpu, t_gpu = outs[0]["cam_t"], outs[1]["cam_t"].cpu()
+        t_err = ((t_gpu - t_cpu).norm(dim=1) / t_cpu.norm(dim=1)).max()
+        check(t_err <= 1e-2, f"hgPRM: cam_t differs by {t_err:.3g} "
+              f"(relative), card vs CPU")
+    print(f"reference check, float32 hgPRM (nFeats 16, nStack 2) card vs "
+          f"CPU at reso 64, 64x64 crops: det_valid equal, boxes within "
+          f"{box_err:.2e} px, heatmaps within {hm_err:.2e} relative, "
+          f"keypoints within {kp_err.max():.2e} px, cam_t within "
+          f"{t_err:.2e} relative")
+
+
 def phase_probe_path(torch, kernels, card):
     """The probe path through its entry point, then the kernel's times."""
     from betapose_tpu_torch.ops.kernels import bottleneck_chain as bc
@@ -601,6 +739,123 @@ def phase_s2d_stem(torch, np, pipe, frames, card):
           f"replay) plain {times['plain']:.4f} ms, s2d {times['s2d']:.4f} "
           f"ms; det stage (eager calls between CUDA events) plain "
           f"{stages['plain']:.4f} ms, s2d {stages['s2d']:.4f} ms [{card}]")
+
+
+def old_conv_layer_forward(self, x):
+    """The port's YOLO layer before it rounded once (kept here only to
+    measure the repair): on a network cast to bf16, cuDNN's bf16 conv
+    output, the folded bias added in bf16, the leaky in bf16."""
+    import torch.nn.functional as F
+    y = self.conv(x)
+    if self.bn is not None:
+        y = self.bn(y)
+    if self.activation == "leaky":
+        y = F.leaky_relu(y, 0.1)
+    return y
+
+
+def ulp_steps(torch, got, ref):
+    """bf16 steps between got and ref, per element (on the CPU)."""
+    def keys(t):
+        v = t.cpu().to(torch.bfloat16).view(torch.int16).int()
+        return torch.where(v < 0, -(v & 0x7FFF), v)
+    return (keys(got) - keys(ref)).abs()
+
+
+def phase_yolo_rounding(torch, np, pipe, frames, card):
+    """YOLO's bf16 layers round once: the card against the CPU per layer,
+    then the forward and the det stage with the old layer and the new."""
+    import copy
+    import dataclasses
+    from unittest import mock
+    from betapose_tpu_torch.eval.pipeline import make_det_stage
+    from betapose_tpu_torch.models import yolov3 as yolo_mod
+    from betapose_tpu_torch.ops.image import resize_bilinear_matmul
+
+    # two layers (the first, 3->32 at 416^2, and a 3x3 512->1024 one) on
+    # bf16 inputs: the card's TF32 conv of bf16 values against the CPU's
+    # float32 conv, which forms the same exact products
+    layers = yolo_mod.conv_layers(pipe.yolo)
+    gen = torch.Generator().manual_seed(5)
+    for idx in (0, max(range(len(layers)),
+                       key=lambda i: layers[i][0].in_channels
+                       * (layers[i][0].size == 3))):
+        spec, layer = layers[idx]
+        hw = 416 if idx == 0 else 13
+        x = torch.randn((2, spec.in_channels, hw, hw), generator=gen)
+        x = x.to(torch.bfloat16)
+        cpu_layer = copy.deepcopy(layer).cpu()
+        with torch.inference_mode():
+            got = layer(x.cuda().to(memory_format=torch.channels_last))
+            ref = cpu_layer(x)
+        check(got.dtype == torch.bfloat16, "bf16 layer output dtype")
+        steps = ulp_steps(torch, got, ref)
+        diff = (got.cpu().float() - ref.float()).abs()
+        # the two float32 sums differ in order only: a rounding flips by 1
+        # ulp now and then, more often the longer the sum (0.3% of outputs
+        # at K = 4608), and by more only where the sum cancels to near zero
+        near = diff <= 1e-5 * ref.float().abs().max()
+        equal = (steps == 0).float().mean().item()
+        check(equal >= 0.99 and bool(((steps <= 1) | near).all()),
+              f"YOLO layer {idx} in bf16, card vs CPU: {equal:.5f} bitwise "
+              f"equal, {int(((steps > 1) & ~near).sum())} outputs more than "
+              f"1 ulp apart")
+        print(f"YOLO bf16 layer {idx} ({spec.in_channels}->"
+              f"{spec.out_channels}, {spec.size}x{spec.size}, {hw}^2) card "
+              f"vs CPU: {100 * equal:.3f}% of outputs bitwise equal, "
+              f"{int((steps > 1).sum())} more than 1 ulp apart, all of "
+              f"them within 1e-5 of max|ref|")
+
+    old_yolo = copy.deepcopy(pipe.yolo).to(torch.bfloat16)
+    old = mock.patch.object(yolo_mod.ConvLayer, "forward",
+                            old_conv_layer_forward)
+    fdev = pipe.to_device(frames)
+    times = {}
+    with torch.inference_mode():
+        x = resize_bilinear_matmul(fdev.to(torch.bfloat16) / 255.0, 416, 416)
+        fwd = {"old": lambda: old_yolo(x, decode=False),
+               "new": lambda: pipe.yolo(x, decode=False)}
+        for name in ("old", "new", "new", "old"):
+            with old if name == "old" else contextlib.nullcontext():
+                times.setdefault(name, []).append(
+                    time_ms(torch, fwd[name], reps=10, rounds=5))
+        cfg32 = dataclasses.replace(pipe.cfg, compute_dtype="float32")
+        dets = {"new": pipe.det_stage(pipe.yolo, fdev),
+                "f32": make_det_stage(cfg32)(pipe.yolo, fdev)}
+        heads = {"new": fwd["new"](),
+                 "f32": pipe.yolo(resize_bilinear_matmul(
+                     fdev.float() / 255.0, 416, 416), decode=False)}
+        with old:
+            dets["old"] = pipe.det_stage(old_yolo, fdev)
+            heads["old"] = fwd["old"]()
+    torch.cuda.synchronize()
+    ref = torch.cat([h.float().flatten() for h in heads["f32"]])
+    for name in ("old", "new"):
+        got = torch.cat([h.float().flatten() for h in heads[name]])
+        print(f"YOLO raw heads in bf16 ({name} layer) against the float32 "
+              f"network on the same {len(frames)} frames: relative RMS "
+              f"difference "
+              f"{((got - ref).norm() / ref.norm()).item():.3e}, max "
+              f"{((got - ref).abs().max() / ref.abs().max()).item():.3e} of "
+              f"max|f32|")
+
+    def moved(a, b):
+        valid = int((dets[a]["det_valid"] != dets[b]["det_valid"]).sum())
+        d = (dets[a]["boxes"] - dets[b]["boxes"]).abs().amax(dim=1)
+        return valid, int((d > 1.0).sum()), d.max().item()
+
+    for name in ("old", "new"):
+        g = [t[0] for t in times[name]]
+        e = [t[1] for t in times[name]]
+        print(f"YOLO forward bf16 at batch {len(frames)} ({name} layer): "
+              f"CUDA-graph "
+              f"replay {g[0]:.4f} / {g[1]:.4f} ms, eager {e[0]:.4f} / "
+              f"{e[1]:.4f} ms (two turns: old, new, new, old) [{card}]")
+    for a, b in (("old", "new"), ("old", "f32"), ("new", "f32")):
+        valid, boxes, worst = moved(a, b)
+        print(f"det stage on the same {len(frames)} frames, {a} against "
+              f"{b}: det_valid differs in {valid}, the best box moves by "
+              f"more than 1 px in {boxes} (at most {worst:.3g} px)")
 
 
 def phase_tools(card):
@@ -803,9 +1058,13 @@ def main():
                                    args.profile_out)
     phase_multi_path(torch, np, kernels, pipe, frames, card,
                      args.profile_out)
+    phase_hgprm_path(torch, np, kernels, pipe, frames, card,
+                     args.profile_out)
     phase_reference(torch, np)
+    phase_hgprm_reference(torch, np)
     phase_probe_path(torch, kernels, card)
     phase_s2d_stem(torch, np, pipe, frames, card)
+    phase_yolo_rounding(torch, np, pipe, frames, card)
     phase_tools(card)
 
     print(json.dumps({"kernels": list(kernels.values())}))

@@ -77,6 +77,43 @@ def test_eval_cli_refuses_what_it_cannot_run(tmp_path):
     assert set(stats) >= {"mean_add", "mean_2d_acc", "mean_iou", "fps"}
 
 
+HG_ARGS = ["--netType", "hgPRM", "--nFeats", "16", "--nStack", "1",
+           "--baseWidth", "4", "--cardinality", "2", "--inputResW", "64",
+           "--outputResW", "16"]
+
+
+@pytest.mark.parametrize("weights", ["seeded", "npz"])
+def test_eval_cli_serves_hgprm(tmp_path, capsys, weights):
+    """--netType hgPRM serves PyraNet (as tests/test_e2e_eval.py's
+    test_hgprm_eval_cli drives the JAX CLI; heatmap sides 16x16, multiples
+    of the hourglass's 16): from a seeded init in smoke mode, or from a JAX
+    `.npz` checkpoint given by --kpd_weights, without the smoke warning."""
+    sixd = make_synthetic_sixd(tmp_path, n_frames=3)
+    out = str(tmp_path / "out")
+    extra = [*HG_ARGS, "--yolo_weights",
+             _zero_yolo_weights(tmp_path / "zero.weights")]
+    if weights == "npz":
+        from betapose_tpu.core.checkpoint import save_pytree_npz
+        from tests.test_torch_hgprm import random_hgprm_params
+        path = str(tmp_path / "hg.npz")
+        save_pytree_npz(path, random_hgprm_params(
+            50, 0, n_feats=16, n_stack=1, base_width=4, cardinality=2))
+        extra += ["--kpd_weights", path]
+    stats = betapose_evaluate.main(_argv(sixd, out, *extra))
+    printed = capsys.readouterr().out
+    assert ("KPD weights" in printed and "smoke mode" in printed) == (
+        weights == "seeded")
+    if weights == "npz":
+        assert f"Loading KPD weights from {path}" in printed
+    # one entry per frame with a valid pose (the seeded init's heatmaps
+    # give none)
+    data = json.load(open(os.path.join(out, "Betapose-results.json")))
+    assert len(data) == (3 if weights == "npz" else 0)
+    for d in data:
+        assert np.isfinite(d["cam_R"] + d["cam_t"] + d["keypoints"]).all()
+    assert set(stats) >= {"mean_add", "mean_2d_acc", "mean_iou", "fps"}
+
+
 def test_loader_threads_and_procs_give_the_same_padded_batches(tmp_path):
     sixd = make_synthetic_sixd(tmp_path, n_frames=5, img_shape=(24, 32))
     paths = port_loader.list_images(os.path.join(sixd, "test", "01", "rgb"))

@@ -6,7 +6,10 @@ same parameters and frames on both sides.
 - boxes agree to atol 1e-3 px and det_valid is equal;
 - heatmaps agree to rtol 1e-4;
 - both post stages, fed the SAME heatmaps and detections, give exactly
-  equal keypoints and scores, and poses that agree in metric space.
+  equal keypoints and scores, and poses that agree in metric space;
+- with net_type="hgPRM" (PyraNet, crop 64x64, heatmap 16x16) the whole
+  step agrees with the JAX step: det_valid and the decoded heatmap peaks
+  equal, keypoints to 1e-3 px, poses in ADD.
 """
 
 import dataclasses
@@ -27,6 +30,8 @@ from betapose_tpu_torch.core.profiling import RuntimeProfile  # noqa: E402
 from betapose_tpu_torch.eval import pipeline as port_pipe  # noqa: E402
 from betapose_tpu_torch.models import kpd as port_kpd  # noqa: E402
 from betapose_tpu_torch.models import yolov3 as port_yolo  # noqa: E402
+from betapose_tpu_torch.models import hgprm as port_hg  # noqa: E402
+from tests.test_torch_hgprm import port_model, random_hgprm_params  # noqa: E402
 from tests.test_torch_kpd import random_kpd_params  # noqa: E402
 
 TINY_YOLO_CFG = """
@@ -299,18 +304,22 @@ def test_pipeline_needs_cuda_unless_cpu_is_asked_for(setup):
         port_pipe.PosePipeline(yolo, kpd, kp3d, CAM_K, port_cfg())
 
 
+HG_CROP = dict(inp_w=64, out_w=16)     # heatmap sides multiples of 16
+HG_NET = dict(n_feats=16, n_stack=2)
+
+
 @pytest.mark.parametrize("option", [
     dict(det_capacity=3), dict(host_pose_nms=True), dict(net_type="hgPRM")])
 def test_options_outside_the_slice_raise(setup, option):
-    """hgPRM (a later slice) raises.  The multi-candidate options, outside
-    the first slice, now run: det_capacity=3 through `make_pose_step`, and
-    host_pose_nms=True, which with capacity 1 runs the capacity-1 step
-    (as in the JAX package)."""
-    if option.get("net_type") == "hgPRM":
-        with pytest.raises(NotImplementedError):
-            port_pipe.make_pose_step(port_cfg(**option))
-        return
+    """The options outside the first slice now run: det_capacity=3 through
+    `make_pose_step`; host_pose_nms=True, which with capacity 1 runs the
+    capacity-1 step (as in the JAX package); net_type="hgPRM", PyraNet at
+    a 64x64 crop, through both as well."""
     _, _, _, yolo, kpd, kp3d, frames = setup
+    if option.get("net_type") == "hgPRM":
+        option = {**option, **HG_CROP}
+        kpd = port_hg.PyraNet(N_KP, n_stack=1, n_feats=16,
+                              generator=torch.Generator().manual_seed(3))
     pipe = port_pipe.PosePipeline(yolo, kpd, kp3d, CAM_K, port_cfg(**option),
                                   device="cpu")
     step = port_pipe.make_pose_step(pipe.cfg)
@@ -321,6 +330,48 @@ def test_options_outside_the_slice_raise(setup, option):
     assert set(out) == set(ref) and out["boxes"].shape == (2, 4)
     for k in out:
         assert torch.equal(out[k], ref[k]), k
+
+
+def test_hgprm_step_matches_jax(setup):
+    """The hgPRM pose step in float32 against the JAX step
+    (`pallas_decode=False`) on the same parameters and frames.  Random
+    weights give random keypoints, whose PnP pose is ill-conditioned (tens
+    of metres away), so the poses are compared in metric space by the 2D
+    reprojection of the keypoint model and by ADD relative to the
+    distance."""
+    spec, yolo_params, _, yolo, _, kp3d, frames = setup
+    hg_params = random_hgprm_params(N_KP, 6, **HG_NET)
+    cfg = dict(net_type="hgPRM", flip_tta=True, **HG_CROP)
+    ref = jax.jit(jax_pipe.make_pose_step(spec, jax_cfg(**cfg)))(
+        yolo_params, hg_params, jnp.asarray(frames), jnp.asarray(kp3d),
+        jnp.asarray(CAM_K))
+    jax_det = jax.jit(jax_pipe.make_det_stage(spec, jax_cfg(**cfg)))(
+        yolo_params, jnp.asarray(frames))
+    jax_hm = np.asarray(jax.jit(jax_pipe.make_pose_stage(jax_cfg(**cfg)))(
+        hg_params, jax_det["crops"]))
+
+    pipe = port_pipe.PosePipeline(yolo, port_model(hg_params, **HG_NET),
+                                  kp3d, CAM_K, port_cfg(**cfg), device="cpu")
+    out = pipe(frames)
+    with torch.inference_mode():
+        hm = pipe.pose_stage(pipe.kpd, pipe.det_stage(
+            pipe.yolo, pipe.to_device(frames))["crops"]).numpy()
+    assert hm.shape == (2, N_KP, 16, 16) and hm.dtype == np.float32
+    np.testing.assert_allclose(hm, jax_hm, rtol=1e-4,
+                               atol=1e-4 * np.abs(jax_hm).max())
+    flat = hm.reshape(2 * N_KP, -1)
+    np.testing.assert_array_equal(flat.argmax(1),
+                                  jax_hm.reshape(2 * N_KP, -1).argmax(1))
+    np.testing.assert_array_equal(out["det_valid"].numpy(),
+                                  np.asarray(ref["det_valid"]))
+    np.testing.assert_allclose(out["keypoints"].numpy(),
+                               np.asarray(ref["keypoints"]), rtol=0,
+                               atol=1e-3)
+    for b in range(2):
+        pj = _pose(np.asarray(ref["cam_R"][b]), np.asarray(ref["cam_t"][b]))
+        pp = _pose(out["cam_R"][b].numpy(), out["cam_t"][b].numpy())
+        assert metrics.projection_error_2d(pj, pp, kp3d, CAM_K) < 0.05
+        assert metrics.add_err(pj, pp, kp3d) < 1e-3 * np.linalg.norm(pj[:3, 3])
 
 
 def test_config_fields_mirror_jax():
