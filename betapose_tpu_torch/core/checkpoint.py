@@ -8,7 +8,9 @@
   (`core/checkpoint.save_pytree_npz` there: one array per leaf, keyed by
   `jax.tree_util.keystr` of its path).  The port reads those with numpy,
   rebuilds the tree, and converts it with the networks' bridges
-  (`kpd.state_dict_from_jax`, `hgprm.state_dict_from_jax`).
+  (`kpd.state_dict_from_jax`, `hgprm.state_dict_from_jax`).  The port
+  writes its own in the same layout (`save_kpd_npz`), so the JAX
+  package's `load_kpd_checkpoint` reads a network the port trained.
 """
 
 from __future__ import annotations
@@ -79,6 +81,39 @@ def load_pytree_npz(path):
                 node = node[step]
             node[leaf] = np.asarray(data[key], np.float32)
     return _lists(root)
+
+
+def _flatten(tree, path=""):
+    """(keystr path, array) of every leaf of a nested dict/list tree: a
+    dict key is written ['name'], a list index [3], as
+    `jax.tree_util.keystr` writes them."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        yield path, np.asarray(tree)
+        return
+    for k, v in items:
+        yield from _flatten(v, f"{path}[{k!r}]")
+
+
+def save_pytree_npz(path, tree):
+    """One array per leaf of the nested dict/list `tree`, keyed by its
+    keystr path: the layout of the JAX package's `save_pytree_npz`."""
+    np.savez(path, **dict(_flatten(tree)))
+
+
+def save_kpd_npz(path, model):
+    """A FastPose or PyraNet as the JAX package's `.npz` param tree, which
+    its `load_kpd_checkpoint` and the port's read back."""
+    sd = model.state_dict()
+    if isinstance(model, hgprm_mod.PyraNet):
+        tree = hgprm_mod.params_from_state_dict(
+            sd, model.n_stack, model.n_residual, model.cardinality)
+    else:
+        tree = kpd_mod.params_from_state_dict(sd)
+    save_pytree_npz(path, tree)
 
 
 def _strip_prefixes(state_dict):

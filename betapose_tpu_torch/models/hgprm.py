@@ -23,10 +23,17 @@ binning (input row i goes to bin (i*out)//in; PARITY.md 2.5), which
 
 The module names are the reference `state_dict` names, so the JAX
 package's `hgprm.torch_state_dict_to_params(model.state_dict())` gives the
-JAX params, and `state_dict_from_jax` is its inverse.  Heatmap sides
-(H/4, W/4) must be multiples of 16 (the depth-4 hourglass).  Inference
-only: batch norm uses running statistics; `calibrate_bn` writes one
-batch's statistics into them, as the JAX package does after training.
+JAX params; `params_from_state_dict` is the port's numpy copy of that
+function and `state_dict_from_jax` its inverse.  Heatmap sides (H/4, W/4)
+must be multiples of 16 (the depth-4 hourglass).
+
+Batch norm: in eval mode it uses the running statistics.  In train mode
+it normalizes with the batch's and leaves the running statistics as they
+are, as the JAX package trains PyraNet (`hgprm.forward(train=True)`);
+`calibrate_bn` writes one batch's statistics into them before
+validation, snapshots and serving.  The convs are
+`models/precision.Conv2d`, which the train step switches to its
+`--trainPrecision` mode.
 """
 
 from __future__ import annotations
@@ -38,8 +45,10 @@ import math
 import numpy as np
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
-from betapose_tpu_torch.models.kpd import _BN_NAMES
+from betapose_tpu_torch.models.kpd import _BN_NAMES, _numpy_state
+from betapose_tpu_torch.models.precision import Conv2d
 
 BN_EPS = 1e-5
 
@@ -100,13 +109,25 @@ def bilinear_resize_ac(x, out_h: int, out_w: int):
 
 def _conv(cin, cout, k=1, gain=1.0, stride=1, pad=0):
     """A conv with a bias; `gain` scales its xavier init (`init_params`)."""
-    conv = nn.Conv2d(cin, cout, k, stride, pad)
+    conv = Conv2d(cin, cout, k, stride, pad)
     conv.gain = gain
     return conv
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """`nn.BatchNorm2d` whose train mode normalizes with the batch mean
+    and biased variance and leaves the running statistics untouched (the
+    JAX `_bn_train`; torch's momentum=None would average them instead)."""
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True,
+                            0.0, self.eps)
+
+
 def _bn(c):
-    return nn.BatchNorm2d(c, eps=BN_EPS)
+    return BatchNorm2d(c, eps=BN_EPS)
 
 
 def _bn_relu(c):
@@ -251,6 +272,8 @@ class PyraNet(nn.Module):
         super().__init__()
         self.n_classes = n_classes
         self.n_stack = n_stack
+        self.n_residual = n_residual
+        self.cardinality = cardinality
         kw = dict(base_width=base_width, cardinality=cardinality)
         self.preact = nn.Sequential(
             nn.Sequential(_conv(3, 64, 7, math.sqrt(1 / 3), 2, 3),
@@ -270,7 +293,7 @@ class PyraNet(nn.Module):
         self.stack_out_ = nn.ModuleList(
             _conv(n_classes, n_feats) for _ in range(n_stack - 1))
         init_params(self, generator)
-        self.eval()  # inference only: KPD training is ROADMAP slice 4
+        self.eval()  # built as served; the trainer calls .train()
 
     def forward(self, x, all_heads: bool = False):
         inter = self.preact(x.permute(0, 3, 1, 2))        # NHWC -> NCHW
@@ -421,3 +444,96 @@ def state_dict_from_jax(params) -> dict:
             conv(f"stack_lin_.{i}", st["lin_"])
             conv(f"stack_out_.{i}", st["out_"])
     return sd
+
+
+def params_from_state_dict(sd, n_stack: int = 4, n_residual: int = 1,
+                           cardinality: int = 5):
+    """The JAX package's `hgprm.torch_state_dict_to_params`, with numpy:
+    the JAX param tree (nested dicts and lists of float32 arrays) of a
+    PyraNet `state_dict`, without the tree's `Static` nodes, which hold no
+    arrays (a `.npz` checkpoint has none).  Every entry must be consumed:
+    leftovers raise."""
+    sd = dict(_numpy_state(sd))
+    used = set()
+
+    def t(name):
+        used.add(name)
+        return sd[name]
+
+    def conv(prefix):
+        w = t(prefix + ".weight").transpose(2, 3, 1, 0)   # OIHW -> HWIO
+        return {"w": np.ascontiguousarray(w), "b": t(prefix + ".bias")}
+
+    def bn(prefix):
+        return {k: t(f"{prefix}.{v}") for k, v in _BN_NAMES.items()}
+
+    def prm(prefix, preact=True):
+        cb = prefix + ".con.modules_list.0"
+        b1 = cb + ".0.0.modules_list.0"
+        b2 = cb + ".0.0.modules_list.1"
+        off = 2 if preact else 0
+        p = {}
+        if preact:
+            p["pre1"] = bn(f"{b1}.0")
+            p["pre2"] = bn(f"{b2}.0")
+        p["b1_conv1"] = conv(f"{b1}.{off}")
+        p["b1_bn"] = bn(f"{b1}.{off + 1}")
+        p["b1_conv2"] = conv(f"{b1}.{off + 3}")
+        p["b2_conv1"] = conv(f"{b2}.{off}")
+        p["b2_bn1"] = bn(f"{b2}.{off + 1}")
+        pyr = f"{b2}.{off + 3}.0.modules_list"
+        p["pyra"] = [conv(f"{pyr}.{j}.1") for j in range(cardinality)]
+        p["b2_bn2"] = bn(f"{b2}.{off + 4}")
+        p["b2_conv2"] = conv(f"{b2}.{off + 6}")
+        p["m_bn"] = bn(cb + ".1")
+        p["m_conv"] = conv(cb + ".3")
+        sk = prefix + ".con.modules_list.1"
+        if f"{sk}.m.2.weight" in sd:
+            p["skip_bn"] = bn(f"{sk}.m.0")
+            p["skip_conv"] = conv(f"{sk}.m.2")
+        return p
+
+    def plain(prefix):
+        cb = prefix + ".0.modules_list.0"
+        p = {"pre": bn(f"{cb}.0"), "conv1": conv(f"{cb}.2"),
+             "bn1": bn(f"{cb}.3"), "conv2": conv(f"{cb}.5"),
+             "bn2": bn(f"{cb}.6"), "conv3": conv(f"{cb}.8")}
+        sk = prefix + ".0.modules_list.1"
+        if f"{sk}.2.weight" in sd:
+            p["skip_bn"] = bn(f"{sk}.0")
+            p["skip_conv"] = conv(f"{sk}.2")
+        return p
+
+    def residuals(prefix, use_pyra):
+        return [(prm if use_pyra else plain)(f"{prefix}.{m}")
+                for m in range(n_residual)]
+
+    def hg(prefix, n):
+        p = {"up1": residuals(f"{prefix}.upperBranch", n >= 2),
+             "low1": residuals(f"{prefix}.lowerBranch.0.1", n >= 3),
+             "low3": residuals(f"{prefix}.lowerBranch.2", n >= 3)}
+        if n > 1:
+            p["low2"] = hg(f"{prefix}.lowerBranch.1", n - 1)
+        else:
+            p["low2_res"] = residuals(f"{prefix}.lowerBranch.1", n >= 3)
+        return p
+
+    params = {"conv1": conv("preact.0.0"), "bn1": bn("preact.0.1"),
+              "r1": prm("preact.1.0", preact=False), "r4": prm("preact.2"),
+              "r5": prm("preact.3"), "stacks": []}
+    for i in range(n_stack):
+        st = {"hg": hg(f"stack_lin.{i}.0", 4),
+              "lin_bn1": bn(f"stack_lin.{i}.1"),
+              "lin_conv": conv(f"stack_lin.{i}.3"),
+              "lin_bn2": bn(f"stack_lin.{i}.4"),
+              "out_conv": conv(f"stack_out.{i}")}
+        if i < n_stack - 1:
+            st["lin_"] = conv(f"stack_lin_.{i}")
+            st["out_"] = conv(f"stack_out_.{i}")
+        params["stacks"].append(st)
+    leftovers = set(sd) - used
+    if leftovers:
+        raise ValueError(
+            f"unconsumed PyraNet state_dict entries ({len(leftovers)}): "
+            f"{sorted(leftovers)[:8]}...")
+    return params

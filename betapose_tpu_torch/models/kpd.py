@@ -17,7 +17,15 @@ Batch norm eps is 1e-5.
 
 The module names are the reference `state_dict` names, so the JAX
 package's `kpd.torch_state_dict_to_params(model.state_dict())` gives the
-JAX params, and `state_dict_from_jax` is its inverse.
+JAX params; `params_from_state_dict` is the port's own copy of that
+function (numpy only) and `state_dict_from_jax` its inverse.
+
+Training (`train/kpd_train.py`): in train mode each `nn.BatchNorm2d`
+normalizes with the batch mean and biased variance and rolls its running
+statistics with momentum 0.1 and the unbiased variance, as the JAX
+`_bn(train=True)` and `apply_bn_updates` do.  The convs are
+`models/precision.Conv2d`, which the train step switches to its
+`--trainPrecision` mode.
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from betapose_tpu_torch.models import stem_s2d
+from betapose_tpu_torch.models.precision import Conv2d
 
 BN_EPS = 1e-5
 RESNET_LAYERS = {"resnet50": [3, 4, 6, 3], "resnet101": [3, 4, 23, 3]}
@@ -56,15 +65,15 @@ class SELayer(nn.Module):
 class Bottleneck(nn.Module):
     def __init__(self, inplanes, planes, stride, downsample: bool):
         super().__init__()
-        self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
+        self.conv1 = Conv2d(inplanes, planes, 1, bias=False)
         self.bn1 = _bn(planes)
-        self.conv2 = nn.Conv2d(planes, planes, 3, stride, 1, bias=False)
+        self.conv2 = Conv2d(planes, planes, 3, stride, 1, bias=False)
         self.bn2 = _bn(planes)
-        self.conv3 = nn.Conv2d(planes, planes * 4, 1, bias=False)
+        self.conv3 = Conv2d(planes, planes * 4, 1, bias=False)
         self.bn3 = _bn(planes * 4)
         self.se = SELayer(planes * 4) if downsample else None
         self.downsample = (nn.Sequential(
-            nn.Conv2d(inplanes, planes * 4, 1, stride, bias=False),
+            Conv2d(inplanes, planes * 4, 1, stride, bias=False),
             _bn(planes * 4)) if downsample else None)
 
     def forward(self, x):
@@ -80,7 +89,7 @@ class Bottleneck(nn.Module):
 class SEResnet(nn.Module):
     def __init__(self, arch: str):
         super().__init__()
-        self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
+        self.conv1 = Conv2d(3, 64, 7, 2, 3, bias=False)
         self.bn1 = _bn(64)
         inplanes = 64
         for li, (planes, blocks) in enumerate(
@@ -109,7 +118,7 @@ class DUC(nn.Module):
 
     def __init__(self, inplanes, planes):
         super().__init__()
-        self.conv = nn.Conv2d(inplanes, planes, 3, padding=1, bias=False)
+        self.conv = Conv2d(inplanes, planes, 3, padding=1, bias=False)
         self.bn = _bn(planes)
         self.pixel_shuffle = nn.PixelShuffle(2)
 
@@ -135,9 +144,9 @@ class FastPose(nn.Module):
         self.suffle1 = nn.PixelShuffle(2)
         self.duc1 = DUC(512, 1024)
         self.duc2 = DUC(256, 512)
-        self.conv_out = nn.Conv2d(128, n_classes, 3, padding=1)
+        self.conv_out = Conv2d(128, n_classes, 3, padding=1)
         init_params(self, generator)
-        self.eval()  # inference only: KPD training is ROADMAP slice 4
+        self.eval()  # built as served; the trainer calls .train()
 
     def forward(self, x, s2d_stem=False):
         x = self.preact(x.permute(0, 3, 1, 2), s2d_stem)  # NHWC -> NCHW
@@ -204,6 +213,78 @@ def fold_bn(model: FastPose) -> FastPose:
 
 _BN_NAMES = {"scale": "weight", "bias": "bias", "mean": "running_mean",
              "var": "running_var"}
+_BN_KEYS = {v: k for k, v in _BN_NAMES.items()}
+
+
+def _numpy_state(state_dict):
+    """(key, float32 numpy array) of a state_dict, 'module.'/'model.'
+    prefixes removed and BN step counters skipped."""
+    for key, val in state_dict.items():
+        if key.endswith("num_batches_tracked"):
+            continue
+        for pref in ("module.", "model."):
+            if key.startswith(pref):
+                key = key[len(pref):]
+        if hasattr(val, "detach"):
+            val = val.detach().cpu().numpy()
+        yield key, np.asarray(val, np.float32)
+
+
+def _as_lists(tree):
+    """Dicts whose keys are all ints become lists, in index order."""
+    if not isinstance(tree, dict):
+        return tree
+    tree = {k: _as_lists(v) for k, v in tree.items()}
+    if tree and all(isinstance(k, int) for k in tree):
+        return [tree[i] for i in range(len(tree))]
+    return tree
+
+
+def params_from_state_dict(state_dict) -> dict:
+    """The JAX package's `kpd.torch_state_dict_to_params`, with numpy: the
+    JAX param tree (nested dicts, lists of blocks, float32 arrays) of a
+    FastPose `state_dict`.  OIHW convs become HWIO, [out,in] linears
+    [in,out], BN weight/bias/running_mean/running_var scale/bias/mean/var.
+    'module.'/'model.' prefixes are removed and `num_batches_tracked`
+    skipped; any other key the tree has no place for raises."""
+    tree = {}
+    for key, v in _numpy_state(state_dict):
+        parts = key.split(".")
+        if parts[0] == "preact":
+            parts = parts[1:]
+        if v.ndim == 4:
+            v = v.transpose(2, 3, 1, 0)
+        last = parts[-1]
+        if parts[0] in ("conv1", "conv_out") and len(parts) == 2:
+            path = [parts[0], "w" if last == "weight" else "b"]
+        elif parts[0] == "bn1" and len(parts) == 2:
+            path = ["bn1", _BN_KEYS[last]]
+        elif parts[0].startswith("layer") and len(parts) >= 4:
+            blk, sub = [parts[0], int(parts[1])], parts[2]
+            if sub.startswith("conv"):
+                path = blk + [sub, "w"]
+            elif sub.startswith("bn"):
+                path = blk + [sub, _BN_KEYS[last]]
+            elif sub == "downsample":
+                path = blk + (["downsample", "conv", "w"] if parts[3] == "0"
+                              else ["downsample", "bn", _BN_KEYS[last]])
+            elif sub == "se":
+                fc = "fc1" if parts[4] == "0" else "fc2"
+                if last == "weight":
+                    v = v.T
+                path = blk + ["se", fc, "w" if last == "weight" else "b"]
+            else:
+                raise ValueError(f"FastPose state_dict: unknown key {key!r}")
+        elif parts[0] in ("duc1", "duc2") and len(parts) == 3:
+            path = ([parts[0], "conv", "w"] if parts[1] == "conv"
+                    else [parts[0], "bn", _BN_KEYS[last]])
+        else:
+            raise ValueError(f"FastPose state_dict: unknown key {key!r}")
+        node = tree
+        for step in path[:-1]:
+            node = node.setdefault(step, {})
+        node[path[-1]] = np.ascontiguousarray(v)
+    return _as_lists(tree)
 
 
 def state_dict_from_jax(params) -> dict:

@@ -65,6 +65,29 @@ def letterbox(img, dst_h: int, dst_w: int, fill: float = 128.0):
     return canvas
 
 
+def _bilinear_gather(img, ys, xs, mask_val=0.0):
+    """Sample img [B,H,W,C] at float coordinates ys, xs [B,h,w] ->
+    [B,h,w,C], bilinear, with `mask_val` for neighbours outside the image
+    (the JAX `_bilinear_gather`, batched)."""
+    b, h, w, c = img.shape
+    y0 = torch.floor(ys).long()
+    x0 = torch.floor(xs).long()
+    wy = (ys - y0)[..., None]
+    wx = (xs - x0)[..., None]
+    flat = img.reshape(b, h * w, c)
+
+    def get(yi, xi):
+        valid = (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w)
+        idx = (yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1)).reshape(b, -1, 1)
+        vals = flat.gather(1, idx.expand(-1, -1, c)).reshape(*yi.shape, c)
+        return torch.where(valid[..., None], vals,
+                           torch.full((), mask_val, dtype=img.dtype,
+                                      device=img.device))
+
+    return ((1 - wy) * ((1 - wx) * get(y0, x0) + wx * get(y0, x0 + 1))
+            + wy * ((1 - wx) * get(y0 + 1, x0) + wx * get(y0 + 1, x0 + 1)))
+
+
 def crop_box_params(ul, br, res_h: int, res_w: int):
     """Canvas geometry of the reference cropBox for boxes ul, br [..., 2]
     (already floor-truncated).  Returns (len_h, len_w, pad_top, pad_left,

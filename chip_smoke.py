@@ -45,18 +45,33 @@ result line):
    both post stages: keypoints, cam_t), for hgPRM (reso 64, 64x64 crops,
    nFeats 16, nStack 2: det_valid, boxes, heatmaps, keypoints, cam_t), and
    PnP on the card recovering planted poses.
-7. The probe path, the second slice's: `tools/probe_vmem_chain` at batch
+7. KPD training through the CLI's epoch loop
+   (`train/train_kpd_main.train_kpd`) on frames made on the card: FastPose
+   SE-ResNet101 (50 keypoints, 320x256 crops, batch 40, bf16 conv
+   precision, DPG, rotation 30, rmsprop) for 2 warm-up and 10 timed steps
+   (step ms from CUDA events, split into augmentation and
+   forward+backward+update, images/s, peak memory); the peak-decode and
+   bottleneck-chain kernels launched 0 times; loss and acc finite; the BN
+   running statistics moved; model_final.npz reloads to bitwise equal
+   heatmaps; the loss on one repeated batch falls over 20 steps; one step
+   in bf16 against float32 from the same weights (loss within 1e-2);
+   hgPRM (nFeats 256, nStack 4) at batch 8 for 3 steps, its running
+   statistics unchanged and its snapshot's calibrated; the float32 train
+   step (resnet50, 64x32, batch 4, 3 steps, fixed draws) on the card
+   against the CPU: loss and acc within 1e-4 relative, parameters within
+   1e-3 of the largest update.
+8. The probe path, the second slice's: `tools/probe_vmem_chain` at batch
    96 over the three bottleneck shapes, with the launch counts set to 0
    before and read after; `bottleneck_chain` must have launched once per
    kernel call the probe made (the probe itself raises when the kernel and
    the cuDNN chain disagree; phase 2 is the check against the plain
    version).  Then the kernel, its plain version and the cuDNN chain are
    timed at each shape, with the kernel's tile, blocks and widths.
-8. The s2d stem: the float32 det stage at reso 416 with and without
+9. The s2d stem: the float32 det stage at reso 416 with and without
    `s2d_stem` on the same frames (raw heads within the JAX test's
    statistical bar, equal det_valid, boxes within 1 px), then both stems
    timed in bf16 at batch 8.
-9. YOLO's bf16 layers, which round once (float32 sums, bias and leaky,
+10. YOLO's bf16 layers, which round once (float32 sums, bias and leaky,
    the JAX `_conv_layer`'s numerics, through TF32 convs of bf16 values):
    two layers on the card against the same layers on the CPU (at least
    99% of outputs bitwise equal, the rest 1 bf16 ulp apart or within 1e-5
@@ -69,7 +84,7 @@ result line):
    (with random weights the best box is an argmax over near-tied
    objectness scores, so the raw heads' distance from the float32
    network's is printed as well).
-10. `tools/profile_pipeline` (capacity 1 and 4), `tools/probe_conv_mfu`
+11. `tools/profile_pipeline` (capacity 1 and 4), `tools/probe_conv_mfu`
    and `tools/probe_s2d_stage` once each at reduced iterations.
 
 Then a `{"kernels": [...]}` JSON line (per kernel: launches on its path,
@@ -79,7 +94,8 @@ memory/compute bound and the library yardstick, in ms, and per shape
 where it runs at several), the
 card line again, and as the last line `{"ok": true, "device": {...}}`.
 --profile-out writes a torch.profiler table of two steps of each of the
-capacity-1, multi-candidate and hgPRM paths (device time by kernel).
+capacity-1, multi-candidate and hgPRM paths and of FastPose training
+(device time by kernel).
 """
 
 from __future__ import annotations
@@ -334,23 +350,26 @@ def hold_decode(torch, hm, rec, path, card):
     return entry
 
 
-def profile_steps(torch, pipe, frames, step_ms, path, profile_out, mode,
+def profile_steps(torch, run, batch, step_ms, path, profile_out, mode,
                   card):
-    """torch.profiler over 2 steps of `pipe`: the device time by kernel
-    into `profile_out` (opened with `mode`), and the device's busy share
-    against the unprofiled step time."""
+    """torch.profiler over 2 calls of `run` (one step each): the device
+    time by kernel into `profile_out` (opened with `mode`), and the
+    device's busy share against the unprofiled step time."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as p:
         for _ in range(2):
-            pipe(frames)
+            run()
         torch.cuda.synchronize()
     avgs = p.key_averages()
+    # device-side user annotations (torch.optim's "Optimizer.step" range)
+    # span kernels already counted: leave them out
     device_us = sum(e.self_device_time_total for e in avgs
-                    if e.device_type == torch.autograd.DeviceType.CUDA)
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and not getattr(e, "is_user_annotation", False))
     table = avgs.table(sort_by="cuda_time_total", row_limit=40)
     with open(profile_out, mode) as f:
-        f.write(f"{card}\n2 {path} steps, batch {len(frames)}\n{table}\n")
+        f.write(f"{card}\n2 {path} steps, batch {batch}\n{table}\n")
     print(f"profile of 2 {path} steps written to {profile_out}: device busy "
           f"{device_us / 2e3:.2f} ms per step against {step_ms:.2f} ms "
           f"per unprofiled step ({100 * device_us / 2e3 / step_ms:.0f}%"
@@ -414,7 +433,8 @@ def phase_main_path(torch, np, kernels, card, profile_out):
     rec["shape"] = entry["shape"]
 
     if profile_out:
-        profile_steps(torch, pipe, frames, wall / steps * 1e3, "main-path",
+        profile_steps(torch, lambda: pipe(frames), len(frames),
+                      wall / steps * 1e3, "main-path",
                       profile_out, "w", card)
     return pipe, frames
 
@@ -493,7 +513,8 @@ def phase_multi_path(torch, np, kernels, pipe, frames, card, profile_out):
               f"{prof.mean('pn') * 1e3:.2f} ms [{card}]")
         outs[path] = to_numpy(out)
         if profile_out:
-            profile_steps(torch, mpipe, frames, wall / steps * 1e3, path,
+            profile_steps(torch, lambda: mpipe(frames), len(frames),
+                          wall / steps * 1e3, path,
                           profile_out, "a", card)
 
     diffs, n_valid = compare_modes(np, outs["multi_host"],
@@ -568,7 +589,8 @@ def phase_hgprm_path(torch, np, kernels, pipe, frames, card, profile_out):
           f"hgPRM heatmaps {hm.shape} {hm.dtype}")
     hold_decode(torch, hm, rec, "hgPRM", card)
     if profile_out:
-        profile_steps(torch, hpipe, frames, wall / steps * 1e3, "hgPRM",
+        profile_steps(torch, lambda: hpipe(frames), len(frames),
+                      wall / steps * 1e3, "hgPRM",
                       profile_out, "a", card)
 
 
@@ -623,6 +645,306 @@ def phase_hgprm_reference(torch, np):
           f"{box_err:.2e} px, heatmaps within {hm_err:.2e} relative, "
           f"keypoints within {kp_err.max():.2e} px, cam_t within "
           f"{t_err:.2e} relative")
+
+
+class FrameSet:
+    """Seeded frames in memory on the card, served as `.epoch()` batches of
+    imgs [B,480,640,3] RGB in [0,1], bndbox [B,4] and part [B,K,2], the
+    form `data/annot.KPDTrainDataset` yields; `n_batches` per epoch,
+    cycling over the frames."""
+
+    def __init__(self, torch, n_frames, n_kp, batch, n_batches, seed,
+                 size=(480, 640)):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        h, w = size
+
+        def u(*shape):
+            return torch.rand(shape, generator=g, device="cuda")
+
+        self.imgs = u(n_frames, h, w, 3)
+        wh = torch.stack([w * (0.25 + 0.3 * u(n_frames)),
+                          h * (0.3 + 0.4 * u(n_frames))], 1)
+        ul = u(n_frames, 2) * (torch.tensor([w, h], device="cuda") - wh)
+        self.boxes = torch.cat([ul, ul + wh], 1)
+        self.parts = ul[:, None] + wh[:, None] * (0.15 + 0.7 * u(
+            n_frames, n_kp, 2))
+        self.batch, self.n_batches = batch, n_batches
+        self.rows = torch.arange(batch, device="cuda")
+
+    def epoch(self):
+        for i in range(self.n_batches):
+            idx = (self.rows + i * self.batch) % len(self.imgs)
+            yield {"imgs": self.imgs[idx], "bndbox": self.boxes[idx],
+                   "part": self.parts[idx]}
+
+
+class StepTimer:
+    """The train loop's timer hook: a CUDA event at each mark, read after
+    the run as per-step (augment, train step) device times in ms."""
+
+    def __init__(self, torch):
+        self.torch, self.marks = torch, []
+
+    def __call__(self, name):
+        ev = self.torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.marks.append((name, ev))
+
+    def steps(self):
+        self.torch.cuda.synchronize()
+        ev = [e for _, e in self.marks]
+        return [(ev[i].elapsed_time(ev[i + 1]),
+                 ev[i + 1].elapsed_time(ev[i + 2]))
+                for i in range(0, len(ev), 3)]
+
+
+def train_args(extra):
+    from betapose_tpu_torch.train import train_kpd_main
+    return train_kpd_main.parse_args([
+        "--expID", "smoke", "--nEpochs", "1", "--snapshot", "0",
+        "--optMethod", "rmsprop", "--LR", "2.5e-4", "--addDPG", "1",
+        "--rotate", "30", "--device", "cuda", *extra])
+
+
+def bn_buffers(torch, model):
+    return {k: v.detach().clone() for k, v in model.state_dict().items()
+            if "running" in k}
+
+
+def phase_kpd_train(torch, np, kernels, card, profile_out):
+    """KPD training on the card (`train/train_kpd_main.train_kpd`, the
+    epoch loop of the CLI) at full width, then its checks: FastPose
+    SE-ResNet101 at batch 40 (bf16 convs, DPG, rotation 30, rmsprop),
+    hgPRM at batch 8, the card against the CPU in float32, bf16 against
+    float32 on the card."""
+    import copy
+    import shutil
+    import tempfile
+    from betapose_tpu_torch.core import checkpoint as ckpt
+    from betapose_tpu_torch.ops.kernels import bottleneck_chain as bc
+    from betapose_tpu_torch.ops.kernels import heatmap_decode as hd
+    from betapose_tpu_torch.train import kpd_train
+    from betapose_tpu_torch.train import train_kpd_main as tkm
+    from betapose_tpu_torch.train.augment import AugmentConfig, augment_batch
+
+    root = tempfile.mkdtemp(prefix="kpd_train_smoke_")
+    try:
+        warm, timed, batch = 2, 10, 40
+        args = train_args(["--netType", "resnet101", "--nClasses", "50",
+                           "--trainBatch", str(batch),
+                           "--exp_root", root, "--tb_root", root])
+        check(args.trainPrecision is None
+              and kpd_train.DEFAULT_TRAIN_PRECISION == "bfloat16",
+              "the default train precision is bfloat16")
+        net = tkm.build_network(args)
+        before = bn_buffers(torch, net.model)
+        frames = FrameSet(torch, 80, 50, batch, warm + timed, seed=5)
+        timer = StepTimer(torch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        hd.decode_peaks.launches = 0
+        bc.bottleneck_chain.launches = 0
+        t0 = time.perf_counter()
+        res = tkm.train_kpd(args, frames, None, net, timer)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for name, fn in (("decode_peaks", hd.decode_peaks),
+                         ("bottleneck_chain", bc.bottleneck_chain)):
+            kernels[name].setdefault("launches_per_path", {})[
+                "kpd_train"] = fn.launches
+            check(fn.launches == 0, f"the training path launched {name}")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        hist = np.asarray(res.history)
+        check(len(hist) == warm + timed and np.isfinite(hist).all(),
+              f"FastPose train: loss/acc {hist.tolist()}")
+        steps = timer.steps()[warm:]
+        aug = np.asarray([a for a, _ in steps])
+        fbu = np.asarray([b for _, b in steps])
+        step_ms = float(np.median(aug + fbu))
+        print(f"kpd train FastPose SE-ResNet101, 50 kp, 320x256 -> 80x64, "
+              f"batch {batch}, bf16 convs, DPG, rotate 30, rmsprop: "
+              f"{timed} timed steps (after {warm}) median {step_ms:.2f} ms "
+              f"per step, {batch * 1e3 / step_ms:.1f} images/s; augment "
+              f"{np.median(aug):.2f} ms, forward+backward+update "
+              f"{np.median(fbu):.2f} ms (CUDA events); {len(hist)} steps "
+              f"in {wall:.2f} s with the model build and model_final.npz; "
+              f"peak device memory {peak:.2f} GiB; loss "
+              f"{hist[0, 0]:.4g} -> {hist[-1, 0]:.4g} [{card}]")
+        after = bn_buffers(torch, res.model)
+        moved = max((after[k].cpu() - v.cpu()).abs().max().item()
+                    for k, v in before.items())
+        check(moved > 1e-3, "FastPose BN running statistics did not move")
+        # model_final.npz back through the port's loader: bitwise
+        loaded = ckpt.load_kpd_checkpoint(
+            f"{res.exp_dir}/model_final.npz", 50, "resnet101").cuda().eval()
+        x = frames.imgs[:8, :320, :256] - 0.45
+        with torch.no_grad():
+            ref = res.model.eval()(x)
+            got = loaded(x)
+        check(torch.equal(ref, got), "model_final.npz heatmaps differ from "
+              "the trained module's")
+        print(f"kpd train FastPose: BN running stats moved by up to "
+              f"{moved:.3g}; model_final.npz reloads to bitwise equal "
+              f"heatmaps [8,50,80,64]")
+
+        # one repeated batch: the loss falls over 20 steps; then bf16
+        # against float32 from the same weights on the same batch
+        model = res.model
+        opt = kpd_train.make_optimizer(model.parameters(), "rmsprop")
+        step = kpd_train.make_train_step(model, opt, 80, "bfloat16")
+        cfg = AugmentConfig(add_dpg=True, rotate=30.0)
+        gen = torch.Generator(device="cuda").manual_seed(9)
+        host = next(frames.epoch())
+        fixed = augment_batch(host["imgs"], host["bndbox"], host["part"],
+                              cfg, gen)
+        w0 = copy.deepcopy(model.state_dict())
+        losses = [step(fixed)["loss"].item() for _ in range(20)]
+        check(np.isfinite(losses).all() and losses[-1] < losses[0],
+              f"loss on one repeated batch: {losses}")
+        # the optimizer update alone, on the last step's gradients: the
+        # host's time to issue it, and the device's to run it
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e0.record()
+        for _ in range(5):
+            opt.step()
+        e1.record()
+        host_ms = (time.perf_counter() - t0) * 1e3 / 5
+        torch.cuda.synchronize()
+        print(f"kpd train FastPose: rmsprop update of "
+              f"{sum(1 for _ in model.parameters())} tensors "
+              f"({sum(p.numel() for p in model.parameters()) / 1e6:.1f} M "
+              f"parameters): {host_ms:.2f} ms of host time to issue, "
+              f"{e0.elapsed_time(e1) / 5:.2f} ms on the device [{card}]")
+        rel = {}
+        for mode in ("bfloat16", "float32"):
+            model.load_state_dict(w0)
+            opt = kpd_train.make_optimizer(model.parameters(), "rmsprop")
+            rel[mode] = kpd_train.make_train_step(
+                model, opt, 80, mode)(fixed)["loss"].item()
+        d = abs(rel["bfloat16"] - rel["float32"]) / abs(rel["float32"])
+        check(d < 1e-2, f"bf16 loss {rel['bfloat16']} vs float32 "
+              f"{rel['float32']}")
+        check(not torch.backends.cudnn.allow_tf32,
+              "the train step left TF32 on")
+        print(f"kpd train FastPose: loss on one repeated batch "
+              f"{losses[0]:.4g} -> {losses[-1]:.4g} over 20 steps; one step "
+              f"from the same weights, bf16 loss {rel['bfloat16']:.6g} vs "
+              f"float32 {rel['float32']:.6g} ({d:.2e} relative)")
+        if profile_out:
+            def one():
+                b = augment_batch(host["imgs"], host["bndbox"],
+                                  host["part"], cfg, gen)
+                float(step(b)["loss"])
+            profile_steps(torch, one, batch, step_ms, "kpd-train",
+                          profile_out, "a", card)
+        del res, model, opt, step, loaded, fixed, w0
+        torch.cuda.empty_cache()
+
+        phase_hgprm_train(torch, np, tkm, ckpt, root, card)
+        phase_train_reference(torch, np, kpd_train)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_hgprm_train(torch, np, tkm, ckpt, root, card):
+    """hgPRM (nFeats 256, nStack 4, 320x256 crops) for 3 steps at batch 8
+    through the loop, with a snapshot: PyraNet trains without rolling its
+    batch-norm statistics, so the snapshot must hold calibrated ones."""
+    batch, n = 8, 3
+    args = train_args(["--netType", "hgPRM", "--nClasses", "50",
+                       "--nFeats", "256", "--nStack", "4",
+                       "--trainBatch", str(batch), "--snapshot", "1",
+                       "--expID", "hg", "--exp_root", root,
+                       "--tb_root", root])
+    net = tkm.build_network(args)
+    before = bn_buffers(torch, net.model)
+    frames = FrameSet(torch, 16, 50, batch, n, seed=6)
+    timer = StepTimer(torch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    res = tkm.train_kpd(args, frames, None, net, timer)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    hist = np.asarray(res.history)
+    check(len(hist) == n and np.isfinite(hist).all(),
+          f"hgPRM train: loss/acc {hist.tolist()}")
+    after = bn_buffers(torch, res.model)
+    check(all(torch.equal(after[k].cpu(), v.cpu())
+              for k, v in before.items()),
+          "hgPRM training rolled its BN running statistics")
+    snap = ckpt.load_pytree_npz(f"{res.exp_dir}/model_0.npz")
+    calibrated = float(np.abs(snap["bn1"]["var"] - 1.0).max())
+    check(calibrated > 1e-3, "the hgPRM snapshot's BN statistics are "
+          "not calibrated")
+    ms = [a + b for a, b in timer.steps()]
+    print(f"kpd train hgPRM nFeats 256, nStack 4, 320x256, batch {batch}, "
+          f"bf16 convs: step ms {', '.join(f'{m:.1f}' for m in ms)} (the "
+          f"first with warm-up); loss {hist[0, 0]:.4g} -> {hist[-1, 0]:.4g};"
+          f" running stats unchanged, the snapshot's calibrated (bn1 var "
+          f"off 1 by up to {calibrated:.3g}); peak device memory "
+          f"{peak:.2f} GiB [{card}]")
+
+
+def phase_train_reference(torch, np, kpd_train):
+    """The train step on the card against the CPU, float32 with TF32 off:
+    FastPose resnet50, 4 keypoints, 64x32 crops, batch 4, 3 steps, rmsprop
+    with momentum 0.9 and weight decay 1e-4, the same fixed draws.  The
+    batch norms' scales and biases are drawn from U(0.1, 0.3) and
+    U(0.5, 1.5), as in tests/test_torch_kpd_train.py, where few ReLU
+    inputs sit near zero and two float32 runs can agree to 1e-3 of an
+    update."""
+    import copy
+    from betapose_tpu_torch.models import kpd as kpd_mod
+    from betapose_tpu_torch.train import augment
+
+    g = torch.Generator().manual_seed(3)
+    model = kpd_mod.FastPose(4, "resnet50", g)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.weight.uniform_(0.1, 0.3, generator=g)
+                m.bias.uniform_(0.5, 1.5, generator=g)
+    w0 = {k: v.clone() for k, v in model.named_parameters()}
+    cfg = augment.AugmentConfig(inp_h=64, inp_w=32, out_h=16, out_w=8,
+                                add_dpg=True)
+    rng = np.random.default_rng(4)
+    data = [(torch.from_numpy(rng.uniform(0, 1, (4, 96, 128, 3))
+                              .astype(np.float32)),
+             torch.tensor([[20.0, 15.0, 100.0, 80.0]] * 4),
+             torch.from_numpy(rng.uniform(30, 90, (4, 4, 2))
+                              .astype(np.float32)),
+             augment.draw_random(4, cfg, torch.Generator().manual_seed(s)))
+            for s in range(3)]
+    hist, params = {}, {}
+    for dev in ("cpu", "cuda"):
+        m = copy.deepcopy(model).to(dev)
+        opt = kpd_train.make_optimizer(m.parameters(), "rmsprop", 2.5e-4,
+                                       0.9, 1e-4)
+        step = kpd_train.make_train_step(m, opt, 16, "float32")
+        hist[dev] = []
+        for imgs, boxes, parts, d in data:
+            b = augment.augment_batch(
+                imgs.to(dev), boxes.to(dev), parts.to(dev), cfg,
+                draws={k: v.to(dev) for k, v in d.items()})
+            r = step(b)
+            hist[dev].append((r["loss"].item(), r["acc"].item()))
+        params[dev] = {k: v.detach().cpu() for k, v in m.named_parameters()}
+    h_cpu, h_gpu = np.asarray(hist["cpu"]), np.asarray(hist["cuda"])
+    loss_rel = float((np.abs(h_gpu - h_cpu) / np.abs(h_cpu).clip(1e-12))
+                     [:, 0].max())
+    check(loss_rel <= 1e-4, f"train loss card vs CPU: {hist}")
+    check(np.allclose(h_gpu[:, 1], h_cpu[:, 1], rtol=1e-4, atol=0),
+          f"train acc card vs CPU: {hist}")
+    update = max((params["cpu"][k] - w0[k]).abs().max().item() for k in w0)
+    worst = max((params["cuda"][k] - params["cpu"][k]).abs().max().item()
+                for k in w0)
+    check(worst <= 1e-3 * update, f"params card vs CPU: {worst:.3g} "
+          f"against the largest update {update:.3g}")
+    print(f"reference check, float32 train step (FastPose resnet50, 4 kp, "
+          f"64x32, batch 4, 3 steps, fixed draws) card vs CPU: loss within "
+          f"{loss_rel:.2e} relative, acc equal, parameters within "
+          f"{worst / update:.2e} of the largest update ({update:.3g})")
 
 
 def phase_probe_path(torch, kernels, card):
@@ -1062,6 +1384,7 @@ def main():
                      args.profile_out)
     phase_reference(torch, np)
     phase_hgprm_reference(torch, np)
+    phase_kpd_train(torch, np, kernels, card, args.profile_out)
     phase_probe_path(torch, kernels, card)
     phase_s2d_stem(torch, np, pipe, frames, card)
     phase_yolo_rounding(torch, np, pipe, frames, card)
