@@ -26,6 +26,10 @@ ROADMAP slice 5.
   A bf16 input gets the JAX `_conv_layer`'s numerics in every layer: bf16
   weights, float32 sums, bias and activation, one rounding to bf16
   (`conv_bf16`).
+- Built in eval mode, as served.  In train mode (`train/yolo_train.py`)
+  the batch norms take darknet's training semantics (`BatchNorm2d`), and
+  the convs are `models/precision.Conv2d`, so `conv_precision` sets their
+  train precision.  `params_to_jax` is the inverse of `params_from_jax`.
 """
 
 from __future__ import annotations
@@ -41,8 +45,10 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from betapose_tpu_torch.models.darknet_cfg import parse_cfg
+from betapose_tpu_torch.models.precision import Conv2d
 
 BN_EPS = 1e-5  # torch BatchNorm2d default, matches reference inference
+BN_ROLLING_MOMENTUM = 0.01  # darknet: rolling = .99*rolling + .01*batch
 LEAKY_SLOPE = 0.1
 
 
@@ -60,6 +66,8 @@ class LayerSpec:
     route_idxs: tuple = ()      # absolute layer indices (route)
     anchors: tuple = ()         # ((w,h),...) for this head (mask applied)
     num_classes: int = 0
+    ignore_thresh: float = 0.7  # yolo: no objectness loss above this IoU
+    focal_loss: bool = False    # yolo: darknet's focal class deltas
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,7 +131,14 @@ def build_spec(cfg) -> NetworkSpec:
             needed.add(i - 1)  # the head passes its input through
             layers.append(LayerSpec(
                 "yolo", cin, anchors=tuple(pairs[m] for m in mask),
-                num_classes=int(b["classes"])))
+                num_classes=int(b["classes"]),
+                ignore_thresh=float(b.get("ignore_thresh", 0.7)),
+                focal_loss=int(b.get("focal_loss", 0)) != 0))
+        elif t in ("region", "detection"):
+            raise NotImplementedError(
+                f"darknet block [{t}]: the YOLOv1/v2 heads and their "
+                "losses are not ported yet (ROADMAP slice 5, the "
+                "remainder of Queue 1 item 4)")
         else:
             raise NotImplementedError(
                 f"darknet block [{t}]: the port builds convolutional, "
@@ -188,6 +203,31 @@ def conv_bf16(x, w32, bias, stride=1, padding=0, activation="linear",
     return y.to(torch.bfloat16)
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """`nn.BatchNorm2d` whose train mode is darknet's (the JAX
+    `_conv_layer` with train=True and `apply_bn_updates`): normalize with
+    the batch mean and the biased batch variance over (N, H, W), and roll
+    the running statistics as 0.99 * old + 0.01 * batch, the variance
+    biased too.  (`nn.BatchNorm2d` rolls with momentum 0.1 and the
+    unbiased variance.)  Eval mode is `nn.BatchNorm2d`'s."""
+
+    def __init__(self, c):
+        super().__init__(c, eps=BN_EPS, momentum=BN_ROLLING_MOMENTUM)
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+            m = self.momentum
+            self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
+            self.running_var.copy_((1 - m) * self.running_var + m * var)
+        # training=True normalizes by the batch mean and biased variance;
+        # with momentum 0 it leaves the running statistics as they are
+        return F.batch_norm(x, None, None, self.weight, self.bias, True,
+                            0.0, self.eps)
+
+
 class ConvLayer(nn.Module):
     """darknet [convolutional]: conv, batch norm or bias, activation.
 
@@ -199,10 +239,9 @@ class ConvLayer(nn.Module):
     def __init__(self, l: LayerSpec):
         super().__init__()
         self.activation = l.activation
-        self.conv = nn.Conv2d(l.in_channels, l.out_channels, l.size,
-                              l.stride, l.pad, bias=not l.batch_normalize)
-        self.bn = (nn.BatchNorm2d(l.out_channels, eps=BN_EPS)
-                   if l.batch_normalize else None)
+        self.conv = Conv2d(l.in_channels, l.out_channels, l.size,
+                           l.stride, l.pad, bias=not l.batch_normalize)
+        self.bn = BatchNorm2d(l.out_channels) if l.batch_normalize else None
 
     def fold(self):
         """Fold the batch norm into the conv weight and a conv bias."""
@@ -274,7 +313,7 @@ class Darknet(nn.Module):
             ConvLayer(l) if l.kind == "conv" else nn.Identity()
             for l in spec.layers)
         init_params(self, generator)
-        self.eval()  # inference only: YOLO training is ROADMAP slice 5
+        self.eval()  # built as served; the trainer calls .train()
 
     def forward(self, x, decode=True):
         """decode=False returns the raw heads, NHWC [B, gs, gs, nA*(5+nC)]
@@ -362,6 +401,30 @@ def params_from_jax(spec: NetworkSpec, layers, reso: int = 416) -> Darknet:
             m.bn.running_mean.copy_(torch.from_numpy(_np(p["bn_mean"])))
             m.bn.running_var.copy_(torch.from_numpy(_np(p["bn_var"])))
     return model
+
+
+def params_to_jax(model: Darknet):
+    """The inverse of `params_from_jax`: the JAX package's per-layer param
+    list as numpy float32, conv {"w" HWIO, "b"} or {"w", "bn_scale",
+    "bn_bias", "bn_mean", "bn_var"}, and {} for a layer without
+    parameters."""
+    def a(t):
+        return t.detach().float().cpu().numpy()
+
+    out = []
+    for l, m in zip(model.spec.layers, model.layers):
+        if l.kind != "conv":
+            out.append({})
+            continue
+        p = {"w": a(m.conv.weight).transpose(2, 3, 1, 0)}
+        if m.bn is None:
+            p["b"] = a(m.conv.bias)
+        else:
+            p.update(bn_scale=a(m.bn.weight), bn_bias=a(m.bn.bias),
+                     bn_mean=a(m.bn.running_mean),
+                     bn_var=a(m.bn.running_var))
+        out.append(p)
+    return out
 
 
 @torch.no_grad()

@@ -60,18 +60,34 @@ result line):
    step (resnet50, 64x32, batch 4, 3 steps, fixed draws) on the card
    against the CPU: loss and acc within 1e-4 relative, parameters within
    1e-3 of the largest update.
-8. The probe path, the second slice's: `tools/probe_vmem_chain` at batch
+8. YOLOv3 training through the CLI's loop
+   (`train/train_yolo_main.train_from_data_cfg`) on 128 seeded 480x640
+   PNG frames with planted boxes and darknet label files written to a
+   temporary directory: YOLOv3-416 (1 class) at batch 64, bf16 conv
+   precision, 2 warm-up and 10 timed steps (ms per step on the host
+   clock, images/s, the split between the host decode and copy, the
+   augmentation and forward+backward+update from CUDA events at the
+   loop's marks, the busy share from torch.profiler, peak memory: a
+   `{"yolo_train": ...}` line); the peak-decode and bottleneck-chain
+   kernels launched 0 times; the final .weights reloads to bitwise equal
+   eval heads; one step at each random-resize bucket (224, 384, 416, 544)
+   at batch 16 and at 544 with batch 32, with peak memory (a
+   `{"yolo_train_buckets": ...}` line); the float32 train step on the card
+   against the CPU (two heads, 64x64, batch 3, 3 steps, fixed draws):
+   loss within 1e-4 relative, parameters within 1e-3 of the largest
+   update, running statistics within 1e-5 of their largest.
+9. The probe path, the second slice's: `tools/probe_vmem_chain` at batch
    96 over the three bottleneck shapes, with the launch counts set to 0
    before and read after; `bottleneck_chain` must have launched once per
    kernel call the probe made (the probe itself raises when the kernel and
    the cuDNN chain disagree; phase 2 is the check against the plain
    version).  Then the kernel, its plain version and the cuDNN chain are
    timed at each shape, with the kernel's tile, blocks and widths.
-9. The s2d stem: the float32 det stage at reso 416 with and without
+10. The s2d stem: the float32 det stage at reso 416 with and without
    `s2d_stem` on the same frames (raw heads within the JAX test's
    statistical bar, equal det_valid, boxes within 1 px), then both stems
    timed in bf16 at batch 8.
-10. YOLO's bf16 layers, which round once (float32 sums, bias and leaky,
+11. YOLO's bf16 layers, which round once (float32 sums, bias and leaky,
    the JAX `_conv_layer`'s numerics, through TF32 convs of bf16 values):
    two layers on the card against the same layers on the CPU (at least
    99% of outputs bitwise equal, the rest 1 bf16 ulp apart or within 1e-5
@@ -84,7 +100,7 @@ result line):
    (with random weights the best box is an argmax over near-tied
    objectness scores, so the raw heads' distance from the float32
    network's is printed as well).
-11. `tools/profile_pipeline` (capacity 1 and 4), `tools/probe_conv_mfu`
+12. `tools/profile_pipeline` (capacity 1 and 4), `tools/probe_conv_mfu`
    and `tools/probe_s2d_stage` once each at reduced iterations.
 
 Then a `{"kernels": [...]}` JSON line (per kernel: launches on its path,
@@ -94,8 +110,8 @@ memory/compute bound and the library yardstick, in ms, and per shape
 where it runs at several), the
 card line again, and as the last line `{"ok": true, "device": {...}}`.
 --profile-out writes a torch.profiler table of two steps of each of the
-capacity-1, multi-candidate and hgPRM paths and of FastPose training
-(device time by kernel).
+capacity-1, multi-candidate and hgPRM paths and of FastPose and YOLOv3
+training (device time by kernel).
 """
 
 from __future__ import annotations
@@ -353,8 +369,9 @@ def hold_decode(torch, hm, rec, path, card):
 def profile_steps(torch, run, batch, step_ms, path, profile_out, mode,
                   card):
     """torch.profiler over 2 calls of `run` (one step each): the device
-    time by kernel into `profile_out` (opened with `mode`), and the
-    device's busy share against the unprofiled step time."""
+    time by kernel into `profile_out` (opened with `mode`; None writes no
+    table), and the device's busy share against the unprofiled step time,
+    which it returns."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as p:
@@ -367,13 +384,15 @@ def profile_steps(torch, run, batch, step_ms, path, profile_out, mode,
     device_us = sum(e.self_device_time_total for e in avgs
                     if e.device_type == torch.autograd.DeviceType.CUDA
                     and not getattr(e, "is_user_annotation", False))
-    table = avgs.table(sort_by="cuda_time_total", row_limit=40)
-    with open(profile_out, mode) as f:
-        f.write(f"{card}\n2 {path} steps, batch {batch}\n{table}\n")
-    print(f"profile of 2 {path} steps written to {profile_out}: device busy "
+    if profile_out:
+        table = avgs.table(sort_by="cuda_time_total", row_limit=40)
+        with open(profile_out, mode) as f:
+            f.write(f"{card}\n2 {path} steps, batch {batch}\n{table}\n")
+    print(f"profile of 2 {path} steps (table: {profile_out}): device busy "
           f"{device_us / 2e3:.2f} ms per step against {step_ms:.2f} ms "
           f"per unprofiled step ({100 * device_us / 2e3 / step_ms:.0f}%"
           f" busy) [{card}]")
+    return device_us / 2e3 / step_ms
 
 
 def phase_main_path(torch, np, kernels, card, profile_out):
@@ -947,6 +966,340 @@ def phase_train_reference(torch, np, kpd_train):
           f"{worst / update:.2e} of the largest update ({update:.3g})")
 
 
+# a two-head YOLO for the float32 card-vs-CPU training check: a shortcut,
+# a route of one and of two layers, an upsample, the anchors split across
+# the heads (the coarse head first, as in YOLOv3's cfg)
+YOLO_TINY_CFG = "".join(
+    f"[{b}]\n" + "".join(f"{k}={v}\n" for k, v in kv.items()) + "\n"
+    for b, kv in [
+        ("net", dict(width=64, height=64, channels=3)),
+        *[("convolutional", dict(batch_normalize=1, filters=f, size=k,
+                                 stride=s, pad=1, activation="leaky"))
+          for f, k, s in ((8, 3, 2), (16, 3, 2), (8, 1, 1), (16, 3, 1))],
+        ("shortcut", {"from": -3, "activation": "linear"}),
+        ("convolutional", dict(batch_normalize=1, filters=32, size=3,
+                               stride=2, pad=1, activation="leaky")),
+        ("convolutional", dict(size=1, stride=1, pad=1, filters=21,
+                               activation="linear")),
+        ("yolo", dict(mask="3,4,5", anchors="6,8,10,12,14,10,20,24,30,20,"
+                      "40,44", classes=2, num=6, ignore_thresh=0.6,
+                      focal_loss=1)),
+        ("route", dict(layers=-3)),
+        ("convolutional", dict(batch_normalize=1, filters=16, size=1,
+                               stride=1, pad=1, activation="leaky")),
+        ("upsample", dict(stride=2)),
+        ("route", dict(layers="-1,-7")),
+        ("convolutional", dict(batch_normalize=1, filters=16, size=3,
+                               stride=1, pad=1, activation="leaky")),
+        ("convolutional", dict(size=1, stride=1, pad=1, filters=21,
+                               activation="linear")),
+        ("yolo", dict(mask="0,1,2", anchors="6,8,10,12,14,10,20,24,30,20,"
+                      "40,44", classes=2, num=6, ignore_thresh=0.7))])
+YOLO_BUCKETS = ((224, 16), (384, 16), (416, 16), (544, 16), (544, 32))
+
+
+def write_yolo_dataset(np, root, n, seed):
+    """n seeded 480x640 PNG frames, each with 1-3 planted boxes (textured
+    rectangles on a dim noisy gradient) and its darknet label file, the
+    list and the .data file: LineMod's frame size and one class, as
+    `tools/yolo_data_prep` writes them.  Returns (.data path, paths)."""
+    import concurrent.futures as cf
+    import os
+    import cv2
+    img_dir = os.path.join(root, "images")
+    os.makedirs(img_dir)
+    ramp = np.linspace(0, 60, 640, dtype=np.float32)[None, :, None]
+
+    def make(i):
+        r = np.random.default_rng([seed, i])
+        img = (r.integers(0, 40, (480, 640, 3)) + ramp).astype(np.uint8)
+        lines = []
+        for _ in range(r.integers(1, 4)):
+            w, h = int(r.integers(40, 240)), int(r.integers(40, 200))
+            x0 = int(r.integers(0, 640 - w))
+            y0 = int(r.integers(0, 480 - h))
+            img[y0:y0 + h, x0:x0 + w] = (r.integers(120, 200, 3)
+                                         + r.integers(0, 50, (h, w, 3)))
+            lines.append(f"0 {(x0 + w / 2) / 640:f} {(y0 + h / 2) / 480:f} "
+                         f"{w / 640:f} {h / 480:f}\n")
+        path = os.path.join(img_dir, f"{i:04d}.png")
+        cv2.imwrite(path, img)
+        with open(path[:-4] + ".txt", "w") as f:
+            f.writelines(lines)
+        return path
+
+    with cf.ThreadPoolExecutor(8) as pool:
+        paths = list(pool.map(make, range(n)))
+    lst = os.path.join(root, "all.txt")
+    with open(lst, "w") as f:
+        f.writelines(p + "\n" for p in paths)
+    data = os.path.join(root, "smoke.data")
+    with open(data, "w") as f:
+        f.write(f"classes = 1\ntrain = {lst}\nvalid = {lst}\n"
+                f"backup = {os.path.join(root, 'backup')}\n")
+    return data, paths
+
+
+class MarkTimer:
+    """The YOLO loop's timer hook: a CUDA event and the host clock at each
+    of its four marks.  `steps()`: per step the device ms from "start" to
+    "loaded" (the host decode and the copy, the device idle), to
+    "augmented" and to "stepped" (forward, backward and update), and the
+    host ms from one "start" to the next (None for the last)."""
+
+    def __init__(self, torch):
+        self.torch, self.marks = torch, []
+
+    def __call__(self, name):
+        ev = self.torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.marks.append((ev, time.perf_counter()))
+
+    def steps(self):
+        self.torch.cuda.synchronize()
+        m = self.marks
+        return [(m[i][0].elapsed_time(m[i + 1][0]),
+                 m[i + 1][0].elapsed_time(m[i + 2][0]),
+                 m[i + 2][0].elapsed_time(m[i + 3][0]),
+                 (m[i + 4][1] - m[i][1]) * 1e3 if i + 4 < len(m) else None)
+                for i in range(0, len(m), 4)]
+
+
+def phase_yolo_train(torch, np, kernels, card, profile_out):
+    """YOLOv3 training on the card through the CLI's loop
+    (`train/train_yolo_main.train_from_data_cfg`) at full width, then its
+    checks: YOLOv3-416 (1 class, 61.5 M parameters) at batch 64, bf16
+    conv precision, from 128 seeded PNG frames; one step at each
+    random-resize bucket; the snapshot; the card against the CPU in
+    float32."""
+    import concurrent.futures as cf
+    import io
+    import os
+    import re
+    import shutil
+    import tempfile
+    from betapose_tpu_torch.data.loader import imread_rgb
+    from betapose_tpu_torch.models import yolov3 as yolo_mod
+    from betapose_tpu_torch.models.darknet_cfg import make_yolov3_cfg
+    from betapose_tpu_torch.ops.kernels import bottleneck_chain as bc
+    from betapose_tpu_torch.ops.kernels import heatmap_decode as hd
+    from betapose_tpu_torch.train import train_yolo_main, yolo_train
+
+    root = tempfile.mkdtemp(prefix="yolo_train_smoke_")
+    try:
+        t0 = time.perf_counter()
+        data, paths = write_yolo_dataset(np, root, 128, seed=7)
+        kib = np.mean([os.path.getsize(p) for p in paths]) / 1024
+        print(f"yolo train: wrote 128 seeded 480x640 PNG frames with "
+              f"planted boxes ({kib:.0f} KiB each on average) in "
+              f"{time.perf_counter() - t0:.1f} s [{card}]")
+        cfg_path = os.path.join(root, "smoke.cfg")
+        with open(cfg_path, "w") as f:
+            f.write(make_yolov3_cfg(num_classes=1))      # 416, batch 64
+        warm, timed, batch, reso = 2, 10, 64, 416
+        timer = MarkTimer(torch)
+        log = io.StringIO()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        hd.decode_peaks.launches = 0
+        bc.bottleneck_chain.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            model = train_yolo_main.train_from_data_cfg(
+                data, cfg_path, None, batch=batch, snapshot_every=0,
+                max_batches=warm + timed, resize_buckets=1, device="cuda",
+                timer=timer)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        sys.stdout.write(log.getvalue())
+        for name, fn in (("decode_peaks", hd.decode_peaks),
+                         ("bottleneck_chain", bc.bottleneck_chain)):
+            kernels[name].setdefault("launches_per_path", {})[
+                "yolo_train"] = fn.launches
+            check(fn.launches == 0,
+                  f"the YOLO training path launched {name}")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        losses = [float(v) for v in re.findall(
+            r"^\d+: (\S+), \S+ avg, reso 416,", log.getvalue(), re.M)]
+        check(len(losses) == warm + timed and np.isfinite(losses).all(),
+              f"YOLO train losses {losses}")
+        steps = timer.steps()[warm:]
+        load, aug, fbu = (np.asarray([s[i] for s in steps])
+                          for i in range(3))
+        step_ms = float(np.median([s[3] for s in steps if s[3]]))
+        n_par = sum(p.numel() for p in model.parameters())
+        nparams = f"{n_par / 1e6:.1f} M parameters"
+        print(f"yolo train YOLOv3-416, 1 class ({nparams}), batch {batch}, "
+              f"bf16 convs, crop-jitter + flip + HSV on the card, SGD: "
+              f"{timed} timed steps (after {warm}) median {step_ms:.2f} ms "
+              f"per step (host clock), {batch * 1e3 / step_ms:.1f} images/s"
+              f"; host decode and copy {np.median(load):.2f} ms, augment "
+              f"{np.median(aug):.2f} ms, forward+backward+update "
+              f"{np.median(fbu):.2f} ms (CUDA events); {warm + timed} steps"
+              f" in {wall:.2f} s with the model build and the final "
+              f".weights; peak device memory {peak:.2f} GiB; loss "
+              f"{losses[0]:.4g} -> {losses[-1]:.4g} [{card}]")
+
+        # the snapshot back through the loader: bitwise equal eval heads
+        spec = model.spec
+        loaded, header = yolo_mod.load_darknet_weights(
+            spec, os.path.join(root, "backup", "smoke_final.weights"), reso)
+        loaded = loaded.cuda().eval()
+        check(int(header[3]) == (warm + timed) * batch, f"seen {header}")
+        tcfg = train_yolo_main._net_cfg_options(spec)
+        rng = np.random.default_rng(9)
+        gen = torch.Generator(device="cuda").manual_seed(9)
+        _, truths = yolo_train.load_darknet_labels(
+            os.path.join(root, "all.txt"), tcfg.max_boxes)
+        pool = cf.ThreadPoolExecutor(8)
+
+        def host_batch(b):
+            idx = rng.integers(0, len(paths), b)
+            imgs = np.stack(list(pool.map(lambda i: imread_rgb(paths[i]),
+                                          idx)))
+            return (torch.from_numpy(imgs).cuda(),
+                    torch.from_numpy(truths[idx]).cuda())
+
+        def augmented(b, r):
+            imgs, tr = host_batch(b)
+            return yolo_train.augment_detection_batch(
+                imgs.float() / 255.0, tr, tcfg, r, r, gen)
+
+        x, _ = augmented(8, reso)
+        with torch.no_grad():
+            ref = model.eval()(x, decode=False)
+            got = loaded(x, decode=False)
+        check(all(torch.equal(a, b) for a, b in zip(ref, got)),
+              "smoke_final.weights heads differ from the trained module's")
+        print("yolo train: smoke_final.weights (seen "
+              f"{int(header[3])}) reloads to bitwise equal eval heads "
+              f"{[tuple(h.shape) for h in ref]} [{card}]")
+        del loaded, ref, got
+
+        # the loop's body once more under the profiler: the busy share
+        opt = yolo_train.make_optimizer(model, tcfg)
+        step = yolo_train.make_train_step(model, opt, reso, reso)
+
+        def one():
+            a, t = augmented(batch, reso)
+            float(step(a, t)["loss"])
+        busy = profile_steps(torch, one, batch, step_ms, "yolo-train",
+                             profile_out, "a", card)
+        print(json.dumps({"yolo_train": {
+            "card": card, "model": "YOLOv3-416, 1 class "
+            "(make_yolov3_cfg), " + nparams, "batch": batch, "reso": reso,
+            "precision": "bfloat16", "warmup_steps": warm,
+            "timed_steps": timed, "ms_per_step": step_ms,
+            "images_per_s": batch * 1e3 / step_ms,
+            "split_ms": {"host_decode_copy": float(np.median(load)),
+                         "augment": float(np.median(aug)),
+                         "forward_backward_update": float(np.median(fbu))},
+            "busy_share": busy, "peak_gib": peak,
+            "loss_first": losses[0], "loss_last": losses[-1]}}))
+
+        # one step at each random-resize bucket (resolution_buckets(416))
+        check([r for r, b in YOLO_BUCKETS if b == 16]
+              == train_yolo_main.resolution_buckets(416),
+              "the buckets of resolution_buckets(416)")
+        rows = []
+        for r, b in YOLO_BUCKETS:
+            step = yolo_train.make_train_step(model, opt, r, r)
+            a, t = augmented(b, r)
+            float(step(a, t)["loss"])            # the shape's first step
+            del a, t
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            a, t = augmented(b, r)
+            e0, e1 = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+            e0.record()
+            loss = float(step(a, t)["loss"])
+            e1.record()
+            torch.cuda.synchronize()
+            check(np.isfinite(loss), f"bucket {r} loss {loss}")
+            rows.append({"reso": r, "batch": b,
+                         "ms": e0.elapsed_time(e1),
+                         "peak_gib": torch.cuda.max_memory_allocated()
+                         / 2**30})
+            del a, t
+        p16, p32 = (x["peak_gib"] for x in rows if x["reso"] == 544)
+        print(json.dumps({"yolo_train_buckets": {
+            "card": card, "rows": rows,
+            "peak_gib_544_batch64_linear": p32 + (p32 - p16) * 2}}))
+        pool.shutdown()
+        del model, opt, step
+        torch.cuda.empty_cache()
+        phase_yolo_train_reference(torch, np, yolo_mod, yolo_train, card)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_yolo_train_reference(torch, np, yolo_mod, yolo_train, card):
+    """The YOLO train step on the card against the CPU, float32 with TF32
+    off: the two-head `YOLO_TINY_CFG`, batch 3 of 80x96 frames augmented
+    to 64x64 with fixed draws, 3 SGD steps; the bars of
+    tests/test_torch_yolo_train.py (loss within 1e-4 relative, parameters
+    within 1e-3 of the largest update, running statistics within 1e-5 of
+    each one's largest)."""
+    import copy
+    g = torch.Generator().manual_seed(4)
+    model = yolo_mod.Darknet(yolo_mod.build_spec(YOLO_TINY_CFG), 64, g)
+    with torch.no_grad():
+        for _, m in yolo_mod.conv_layers(model):
+            if m.bn is not None:
+                m.bn.weight.uniform_(0.5, 1.5, generator=g)
+                m.bn.bias.normal_(0.0, 0.3, generator=g)
+    cfg = yolo_train.YoloTrainConfig(lr=1e-3, burn_in=2, steps=(100,),
+                                     scales=(0.1,))
+    rng = np.random.default_rng(4)
+    data = []
+    for s in range(3):
+        tr = np.zeros((3, 4, 5), np.float32)
+        tr[:, :2] = np.concatenate([rng.uniform(0.2, 0.8, (3, 2, 2)),
+                                    rng.uniform(0.1, 0.5, (3, 2, 2)),
+                                    rng.integers(0, 2, (3, 2, 1))], -1)
+        data.append((torch.from_numpy(rng.uniform(0, 1, (3, 80, 96, 3))
+                                      .astype(np.float32)),
+                     torch.from_numpy(tr),
+                     yolo_train.draw_random(
+                         3, 80, 96, cfg, torch.Generator().manual_seed(s))))
+    w0 = yolo_mod.params_to_jax(model)
+    hist, params = {}, {}
+    for dev in ("cpu", "cuda"):
+        m = copy.deepcopy(model).to(dev)
+        opt = yolo_train.make_optimizer(m, cfg)
+        step = yolo_train.make_train_step(m, opt, 64, 64, "float32")
+        hist[dev] = []
+        for imgs, tr, d in data:
+            a, t = yolo_train.augment_detection_batch(
+                imgs.to(dev), tr.to(dev), cfg, 64, 64,
+                draws={k: v.to(dev) for k, v in d.items()})
+            hist[dev].append(step(a, t)["loss"].item())
+        params[dev] = yolo_mod.params_to_jax(m)
+    h_cpu, h_gpu = np.asarray(hist["cpu"]), np.asarray(hist["cuda"])
+    loss_rel = float((np.abs(h_gpu - h_cpu) / np.abs(h_cpu)).max())
+    check(loss_rel <= 1e-4, f"YOLO train loss card vs CPU: {hist}")
+    flat = [{f"{i}/{k}": v for i, p in enumerate(ps) for k, v in p.items()}
+            for ps in (w0, params["cpu"], params["cuda"])]
+    stats = [k for k in flat[0] if k.endswith(("bn_mean", "bn_var"))]
+    train = [k for k in flat[0] if k not in stats]
+    update = max(np.abs(flat[1][k] - flat[0][k]).max() for k in train)
+    worst = max(np.abs(flat[2][k] - flat[1][k]).max() for k in train)
+    check(worst <= 1e-3 * update, f"YOLO params card vs CPU: {worst:.3g} "
+          f"against the largest update {update:.3g}")
+    worst_stat = max(np.abs(flat[2][k] - flat[1][k]).max()
+                     / np.abs(flat[1][k]).max() for k in stats)
+    check(worst_stat <= 1e-5, f"YOLO running stats card vs CPU: "
+          f"{worst_stat:.3g} of the largest")
+    check(not torch.backends.cudnn.allow_tf32,
+          "the train step left TF32 on")
+    print(f"reference check, float32 YOLO train step (two heads, 64x64, "
+          f"batch 3, 3 steps, fixed draws) card vs CPU: loss within "
+          f"{loss_rel:.2e} relative, parameters within {worst / update:.2e}"
+          f" of the largest update ({update:.3g}), running statistics "
+          f"within {worst_stat:.2e} of their largest [{card}]")
+
+
 def phase_probe_path(torch, kernels, card):
     """The probe path through its entry point, then the kernel's times."""
     from betapose_tpu_torch.ops.kernels import bottleneck_chain as bc
@@ -1385,6 +1738,7 @@ def main():
     phase_reference(torch, np)
     phase_hgprm_reference(torch, np)
     phase_kpd_train(torch, np, kernels, card, args.profile_out)
+    phase_yolo_train(torch, np, kernels, card, args.profile_out)
     phase_probe_path(torch, kernels, card)
     phase_s2d_stem(torch, np, pipe, frames, card)
     phase_yolo_rounding(torch, np, pipe, frames, card)
