@@ -96,7 +96,9 @@ def evaluate_occlusion_metrics(final_result, sixd_base, obj_id,
     return stats
 
 
-def main(argv=None):
+def main(argv=None, eval_hook=None):
+    """Runs the evaluation; returns its stats.  eval_hook(pipeline):
+    called with the pipeline once the images have run through it."""
     parser = make_parser("Betapose occlusion evaluation (PyTorch)")
     args = parser.parse_args(argv)
     cfg = Config.from_args(args)
@@ -120,6 +122,8 @@ def main(argv=None):
         pipeline, im_names, max(cfg.detection.det_batch, 1),
         profile=cfg.runtime.profile, host_loader=cfg.runtime.host_loader)
     print("===========================> Finish Model Running.")
+    if eval_hook is not None:
+        eval_hook(pipeline)
     results_mod.write_json(final_result, cfg.runtime.output_path,
                            form=cfg.runtime.format)
     stats = evaluate_occlusion_metrics(

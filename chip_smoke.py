@@ -76,18 +76,38 @@ result line):
    against the CPU (two heads, 64x64, batch 3, 3 steps, fixed draws):
    loss within 1e-4 relative, parameters within 1e-3 of the largest
    update, running statistics within 1e-5 of their largest.
-9. The probe path, the second slice's: `tools/probe_vmem_chain` at batch
+9. The accuracy tiers (`tools/selftest`, `tools/sweep`): the fast
+   selftest trained on the card in a temporary params_dir (60 rendered
+   scenes, 250 YOLO and 1500 KPD iterations, 8 held-out frames) with its
+   render time, ms per YOLO and KPD step, the KPD loop's busy share over
+   2 profiled steps, peak memory and ADD / 2D / IoU stats (a
+   `{"selftest": ...}` line); decode launched once (its one eval call),
+   the chain never, and decode bitwise equal to its plain version on that
+   eval's [8,12,32,24] heatmaps; the cache reloaded on the card and on
+   the CPU (float32, TF32 off): equal n_detected, mean and median ADD
+   within 0.5 mm or 1%, 2D error within 0.5 px or 1%.  Then the sweep cut
+   to cube and prism, 100 scenes, 300 YOLO and 100 KPD iterations, no
+   fine-tune, 8 eval frames: the 15-class YOLOv3-416, target_class
+   routing, both objects detected and the prism's poses graded by ADD-S
+   (finite), decode once per object's eval and bitwise equal on both
+   objects' heatmaps together ([16,26,80,64]).  Then
+   occl_multiobj cut to 48 cluttered scenes, 300 YOLO and 10 KPD
+   iterations per object and 8 eval frames, through the occlusion CLI
+   at capacity 4: both objects' poses graded (finite ADD), decode once
+   per object's eval batch and bitwise equal on each object's
+   [32,26,80,64] heatmaps.
+10. The probe path, the second slice's: `tools/probe_vmem_chain` at batch
    96 over the three bottleneck shapes, with the launch counts set to 0
    before and read after; `bottleneck_chain` must have launched once per
    kernel call the probe made (the probe itself raises when the kernel and
    the cuDNN chain disagree; phase 2 is the check against the plain
    version).  Then the kernel, its plain version and the cuDNN chain are
    timed at each shape, with the kernel's tile, blocks and widths.
-10. The s2d stem: the float32 det stage at reso 416 with and without
+11. The s2d stem: the float32 det stage at reso 416 with and without
    `s2d_stem` on the same frames (raw heads within the JAX test's
    statistical bar, equal det_valid, boxes within 1 px), then both stems
    timed in bf16 at batch 8.
-11. YOLO's bf16 layers, which round once (float32 sums, bias and leaky,
+12. YOLO's bf16 layers, which round once (float32 sums, bias and leaky,
    the JAX `_conv_layer`'s numerics, through TF32 convs of bf16 values):
    two layers on the card against the same layers on the CPU (at least
    99% of outputs bitwise equal, the rest 1 bf16 ulp apart or within 1e-5
@@ -100,7 +120,7 @@ result line):
    (with random weights the best box is an argmax over near-tied
    objectness scores, so the raw heads' distance from the float32
    network's is printed as well).
-12. `tools/profile_pipeline` (capacity 1 and 4), `tools/probe_conv_mfu`
+13. `tools/profile_pipeline` (capacity 1 and 4), `tools/probe_conv_mfu`
    and `tools/probe_s2d_stage` once each at reduced iterations.
 
 Then a `{"kernels": [...]}` JSON line (per kernel: launches on its path,
@@ -354,7 +374,8 @@ def hold_decode(torch, hm, rec, path, card):
     n_bytes = hm.numel() * 4 + k_out.numel() * 4
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, hm.numel() / F32_FLOPS
     entry = {"path": path, "shape": "x".join(map(str, hm.shape)), "ms": ms,
-             "ms_l2_cold": cold_ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops) * 1e3,
+             "ms_l2_cold": cold_ms, "plain_ms": plain_ms,
+             "bound_ms": max(t_bytes, t_ops) * 1e3,
              "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
     rec.setdefault("per_shape", []).append(entry)
     print(f"decode_peaks {list(hm.shape)} ({path}): device time kernel "
@@ -364,6 +385,15 @@ def hold_decode(torch, hm, rec, path, card):
           f"us; bound {entry['bound_ms'] * 1e3:.2f} us ({entry['bound_by']},"
           f" {n_bytes / 1e6:.1f} MB) [{card}]")
     return entry
+
+
+def device_busy_us(torch, avgs):
+    """Device time in a profile's key_averages, in us.  Device-side user
+    annotations (torch.optim's "Optimizer.step" range) span kernels
+    already counted: they are left out."""
+    return sum(e.self_device_time_total for e in avgs
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False))
 
 
 def profile_steps(torch, run, batch, step_ms, path, profile_out, mode,
@@ -379,11 +409,7 @@ def profile_steps(torch, run, batch, step_ms, path, profile_out, mode,
             run()
         torch.cuda.synchronize()
     avgs = p.key_averages()
-    # device-side user annotations (torch.optim's "Optimizer.step" range)
-    # span kernels already counted: leave them out
-    device_us = sum(e.self_device_time_total for e in avgs
-                    if e.device_type == torch.autograd.DeviceType.CUDA
-                    and not getattr(e, "is_user_annotation", False))
+    device_us = device_busy_us(torch, avgs)
     if profile_out:
         table = avgs.table(sort_by="cuda_time_total", row_limit=40)
         with open(profile_out, mode) as f:
@@ -1300,6 +1326,274 @@ def phase_yolo_train_reference(torch, np, yolo_mod, yolo_train, card):
           f"within {worst_stat:.2e} of their largest [{card}]")
 
 
+# the cut multi-object occlusion tier: 48 cluttered scenes, 300 YOLO and
+# 10 KPD iterations per object, 8 eval frames; widths as the tier's own.
+# 300 detector steps on 48 scenes box most eval frames of both objects at
+# IoU >= 0.5, so that the occlusion CLI grades poses on the card
+CUT_OCCL = dict(n_frames=48, n_eval=8, yolo_iters=300, kpd_iters=10,
+                kpd_finetune_iters=0)
+
+
+def phase_cut_occl(torch, np, kernels, card):
+    """`tools/occl_multiobj.run_occl_multiobj` cut as CUT_OCCL says, on
+    the card: per-object single-class YOLOv3-416 and FastPose trained on
+    the cluttered frames, the SIXD tree, the port's occlusion CLI per
+    object at capacity 4; decode launched once per object's eval batch
+    and held bitwise on each object's heatmaps, [32,26,80,64] (8 frames
+    times 4 candidates)."""
+    import os
+    import tempfile
+    from betapose_tpu_torch.ops.kernels import bottleneck_chain as bc
+    from betapose_tpu_torch.ops.kernels import heatmap_decode as hd
+    from betapose_tpu_torch.tools import occl_multiobj as occl
+
+    hms = []
+    with tempfile.TemporaryDirectory() as tmp:
+        hd.decode_peaks.launches = 0
+        bc.bottleneck_chain.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):     # the CLI's prints
+            out = occl.run_occl_multiobj(
+                params_dir=os.path.join(tmp, "w"),
+                work_dir=os.path.join(tmp, "tree"), device="cuda",
+                verbose=False, eval_hook=lambda pipe, frames: hms.append(
+                    eval_heatmaps(torch, pipe, frames)), **CUT_OCCL)
+        wall = time.perf_counter() - t0
+    dec = hd.decode_peaks.launches
+    check(dec == 2 and bc.bottleneck_chain.launches == 0 and
+          sorted(out) == [1, 2], f"occl_multiobj: decode_peaks launched "
+          f"{dec} times for 2 objects' 8 frames, chain "
+          f"{bc.bottleneck_chain.launches}")
+    kernels["decode_peaks"]["launches_per_path"]["occl_multiobj"] = dec
+    kernels["bottleneck_chain"]["launches_per_path"]["occl_multiobj"] = 0
+    print(f"cut occl_multiobj (cube + L-wedge + distractor; 48 scenes, 300 "
+          f"YOLO and 10 KPD iterations per object, 8 eval frames; the tier:"
+          f" 800 scenes, 2000 / 8000 + 3000 iterations, 32 eval frames): "
+          f"{wall:.1f} s; " + "; ".join(
+              f"obj {k}: ADD<0.1d {v['mean_add']:.3f}, mean ADD "
+              f"{v['mean_add_err']:.1f} mm, 2D<20px {v['mean_2d_acc']:.3f}, "
+              f"IoU>0.5 {v['mean_iou']:.3f}"
+              for k, v in sorted(out.items())) + f" [{card}]")
+    # the detectors must find both objects, and the CLI grade their poses
+    check(all(v["mean_iou"] > 0 and np.isfinite(v["mean_add_err"])
+              for v in out.values()),
+          f"occl_multiobj: no pose graded on the card: {out}")
+    check(len(hms) == 2 and all(tuple(h.shape) == (32, 26, 80, 64)
+                                for h in hms),
+          f"occl_multiobj heatmaps {[tuple(h.shape) for h in hms]}")
+    for oid, hm in zip(sorted(out), hms):
+        hold_decode(torch, hm, kernels["decode_peaks"],
+                    f"occl_multiobj obj {oid}", card)
+
+
+class WindowProfile:
+    """A step hook for `tools/selftest.run_selftest`: torch.profiler over
+    `n` steps of one training stage, from its step `start` on, with a
+    synchronize at each end of the window; `busy` is the device's busy
+    share of that window's wall time."""
+
+    def __init__(self, torch, stage, start=200, n=2):
+        self.torch, self.stage, self.start, self.n = torch, stage, start, n
+        self.prof, self.busy = None, None
+
+    def __call__(self, stage, it):
+        from torch.profiler import ProfilerActivity, profile
+        torch = self.torch
+        if stage != self.stage:
+            return
+        if it == self.start - 1:
+            torch.cuda.synchronize()
+            self.prof = profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA])
+            self.prof.start()
+            self.t0 = time.perf_counter()
+        elif it == self.start + self.n - 1 and self.prof is not None:
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - self.t0) * 1e6
+            self.prof.stop()
+            self.busy = device_busy_us(torch,
+                                       self.prof.key_averages()) / wall_us
+
+
+def stats_line(stats):
+    return (f"detected {stats['n_detected']}/{stats['n_eval']}, "
+            f"ADD<0.1d {stats['add_01d_acc']:.3f}, mean ADD "
+            f"{stats['mean_add_m'] * 1e3:.3f} mm (median "
+            f"{stats['median_add_m'] * 1e3:.3f}), 2D {stats['mean_2d_px']:.3f}"
+            f" px (median {stats['median_2d_px']:.3f}), IoU "
+            f"{stats['mean_iou']:.3f}")
+
+
+def eval_heatmaps(torch, pipe, frames):
+    """The KPD heatmaps a pipeline's eval computes on `frames`."""
+    with torch.inference_mode():
+        det = pipe.det_stage(pipe.yolo, pipe.to_device(frames))
+        return pipe.pose_stage(pipe.kpd, det["crops"]).float()
+
+
+# card vs CPU on the reloaded fast tier: mean and median ADD within 0.5 mm
+# or 1% (the cube's ADD<0.1d bar is 13.9 mm), 2D error within 0.5 px or 1%
+RELOAD_ADD_ATOL, RELOAD_2D_ATOL, RELOAD_RTOL = 5e-4, 0.5, 1e-2
+
+
+def phase_selftest(torch, np, kernels, card):
+    """The accuracy tiers' path: the fast selftest trained on the card in
+    a temporary params_dir (60 scenes, 250 YOLO and 1500 KPD iterations,
+    8 held-out frames), the decode kernel held on its eval's heatmaps,
+    the cache reloaded on the card and on the CPU, then the cut sweep."""
+    import os
+    import tempfile
+    from betapose_tpu_torch.ops.kernels import bottleneck_chain as bc
+    from betapose_tpu_torch.ops.kernels import heatmap_decode as hd
+    from betapose_tpu_torch.tools import selftest as st
+
+    with tempfile.TemporaryDirectory() as tmp:
+        params = os.path.join(tmp, "selftest")
+        report, window, hms = {}, WindowProfile(torch, "kpd"), []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        hd.decode_peaks.launches = 0
+        bc.bottleneck_chain.launches = 0
+        t0 = time.perf_counter()
+        stats = st.run_selftest(
+            params_dir=params, device="cuda", report=report,
+            step_hook=window, verbose=False,
+            eval_hook=lambda pipe, fr: hms.append(eval_heatmaps(torch, pipe,
+                                                                fr)))
+        wall = time.perf_counter() - t0
+        for name, fn, want in (("decode_peaks", hd.decode_peaks, 1),
+                               ("bottleneck_chain", bc.bottleneck_chain, 0)):
+            kernels[name].setdefault("launches_per_path", {})[
+                "selftest"] = fn.launches
+            check(fn.launches == want, f"{name} launched {fn.launches} "
+                  f"times on the selftest path (one eval call)")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        check(stats["n_eval"] == 8 and np.isfinite(stats["diameter_m"]),
+              f"selftest stats {stats}")
+        yolo_ms = report["yolo_s"] / 250 * 1e3
+        kpd_ms = report["kpd_s"] / 1500 * 1e3
+        print(f"selftest (fast tier, trained on the card): render "
+              f"{report['render_s']:.2f} s (68 scenes), YOLO "
+              f"{yolo_ms:.2f} ms/step, KPD {kpd_ms:.2f} ms/step, KPD busy "
+              f"{100 * window.busy:.0f}% (2 profiled steps), eval "
+              f"{report['eval_s'] * 1e3:.1f} ms, whole run {wall:.1f} s, "
+              f"peak {peak:.2f} GiB; {stats_line(stats)}; decode_peaks "
+              f"launched {hd.decode_peaks.launches} time(s) [{card}]")
+        print(json.dumps({"selftest": dict(
+            stats, render_s=report["render_s"], yolo_ms_per_step=yolo_ms,
+            kpd_ms_per_step=kpd_ms, kpd_busy=window.busy, peak_gib=peak,
+            wall_s=wall)}))
+        hm, = hms
+        check(tuple(hm.shape) == (8, 12, 32, 24), f"heatmaps {hm.shape}")
+        hold_decode(torch, hm, kernels["decode_peaks"], "selftest", card)
+
+        again = st.run_selftest(params_dir=params, device="cuda",
+                                verbose=False)
+        check(again["n_detected"] == stats["n_detected"],
+              f"the reloaded cache detects {again['n_detected']}, the "
+              f"trained run {stats['n_detected']}")
+        cpu = st.run_selftest(params_dir=params, device="cpu",
+                              verbose=False)
+        check(cpu["n_detected"] == again["n_detected"],
+              f"reloaded: card detects {again['n_detected']}, CPU "
+              f"{cpu['n_detected']}")
+        for k, atol in (("mean_add_m", RELOAD_ADD_ATOL),
+                        ("median_add_m", RELOAD_ADD_ATOL),
+                        ("mean_2d_px", RELOAD_2D_ATOL),
+                        ("median_2d_px", RELOAD_2D_ATOL)):
+            a, b = again[k], cpu[k]
+            check(a == b or abs(a - b) <= max(atol, RELOAD_RTOL * abs(b)),
+                  f"reloaded {k}: card {a} vs CPU {b}")
+        print(f"selftest cache reloaded (float32, TF32 off): card "
+              f"{stats_line(again)}; CPU {stats_line(cpu)}; the trained "
+              f"run's ADD {stats['mean_add_m'] * 1e3:.3f} mm [{card}]")
+    phase_cut_sweep(torch, np, kernels, card)
+
+
+# the cut sweep: two objects (one symmetric), 100 scenes, 300 YOLO and 100
+# KPD iterations, no fine-tune, 8 eval frames; widths as the sweep's own.
+# 300 detector steps are about the fewest after which the 15-class
+# YOLOv3-416 boxes every eval frame at IoU >= 0.5, so that ADD-S grades
+# poses on the card (100 steps left every objectness under 0.005); the
+# KPD is cut to 100 steps to pay for them
+CUT_SWEEP = dict(object_names=("cube", "prism"), n_frames=100, n_eval=8,
+                 yolo_iters=300, kpd_iters=100, kpd_finetune_iters=0)
+
+
+def phase_cut_sweep(torch, np, kernels, card):
+    """`tools/sweep.run_sweep` cut as CUT_SWEEP says, on the card: the
+    15-class YOLOv3 at 416, target_class routing per object, ADD-S on the
+    prism; decode launched once per object's eval and held bitwise on
+    both objects' eval heatmaps together ([16,26,80,64], the --slow
+    tier's shape)."""
+    import os
+    import tempfile
+    from betapose_tpu_torch.ops.kernels import bottleneck_chain as bc
+    from betapose_tpu_torch.ops.kernels import heatmap_decode as hd
+    from betapose_tpu_torch.tools import sweep
+
+    hms, pipes = [], []
+
+    def hold(pipe, frames):
+        pipes.append(pipe)
+        hms.append(eval_heatmaps(torch, pipe, frames))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        report = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        hd.decode_peaks.launches = 0
+        bc.bottleneck_chain.launches = 0
+        t0 = time.perf_counter()
+        out = sweep.run_sweep(params_dir=os.path.join(tmp, "sweep"),
+                              device="cuda", verbose=False, report=report,
+                              eval_hook=hold,
+                              out_json=os.path.join(tmp, "sweep.json"),
+                              **CUT_SWEEP)
+        wall = time.perf_counter() - t0
+        dec = hd.decode_peaks.launches
+        with open(os.path.join(tmp, "sweep.json")) as f:
+            on_disk = json.load(f)
+    check(dec == 2 and bc.bottleneck_chain.launches == 0,
+          f"sweep: decode_peaks launched {dec} times for 2 objects, "
+          f"bottleneck_chain {bc.bottleneck_chain.launches}")
+    kernels["decode_peaks"]["launches_per_path"]["sweep"] = dec
+    kernels["bottleneck_chain"]["launches_per_path"]["sweep"] = 0
+    check(all(p.yolo.spec.layers[p.yolo.spec.yolo_idxs[0]].num_classes
+              == 15 and p.cfg.reso == 416 for p in pipes)
+          and [p.cfg.target_class for p in pipes] == [0, 1],
+          "sweep: the 15-class 416 detector routed to classes 0 and 1")
+    rows = out["per_object"]
+    check([r["symmetric"] for r in rows] == [False, True]
+          and on_disk["partial"] is False, f"sweep rows {rows}")
+    # the detector must find the objects, and ADD-S must grade the
+    # symmetric prism's poses on the card
+    check(all(r["n_detected"] > 0 for r in rows)
+          and np.isfinite(rows[1]["mean_adds_m"])
+          and np.isfinite(rows[1]["mean_2d_px_sym"]),
+          f"sweep: nothing graded on the card: {rows}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"cut sweep (objects cube, prism; 100 scenes, 300 YOLO and 100 "
+          f"KPD iterations, no fine-tune, 8 eval frames; the full sweep: 13 "
+          f"objects, 800 scenes, 3000 / 8000 + 3000 iterations, 16 eval "
+          f"frames): render {report['render_s']:.1f} s, 15-class YOLOv3-416 "
+          f"{report['yolo_s']:.1f} s, KPD {report['kpd_s'][0]:.1f} / "
+          f"{report['kpd_s'][1]:.1f} s, whole run {wall:.1f} s, peak "
+          f"{peak:.2f} GiB [{card}]")
+    for r in rows:
+        print(f"  seq {r['seq']:02d} {r['object']:<6} "
+              f"{'ADD-S' if r['symmetric'] else 'ADD  '} add_acc "
+              f"{r['add_acc']:.3f} adds_acc {r['adds_acc']:.3f} mean ADD "
+              f"{r['mean_add_m'] * 1e3:.2f} mm ADD-S "
+              f"{r['mean_adds_m'] * 1e3:.2f} mm 2D {r['mean_2d_px']:.2f} "
+              f"(sym {r['mean_2d_px_sym']:.2f}) px IoU {r['mean_iou']:.3f} "
+              f"det {r['n_detected']}/{r['n_eval']}")
+    hm = torch.cat(hms)
+    check(tuple(hm.shape) == (16, 26, 80, 64), f"sweep heatmaps {hm.shape}")
+    hold_decode(torch, hm, kernels["decode_peaks"], "sweep", card)
+    phase_cut_occl(torch, np, kernels, card)
+
+
 def phase_probe_path(torch, kernels, card):
     """The probe path through its entry point, then the kernel's times."""
     from betapose_tpu_torch.ops.kernels import bottleneck_chain as bc
@@ -1739,6 +2033,7 @@ def main():
     phase_hgprm_reference(torch, np)
     phase_kpd_train(torch, np, kernels, card, args.profile_out)
     phase_yolo_train(torch, np, kernels, card, args.profile_out)
+    phase_selftest(torch, np, kernels, card)
     phase_probe_path(torch, kernels, card)
     phase_s2d_stem(torch, np, pipe, frames, card)
     phase_yolo_rounding(torch, np, pipe, frames, card)
