@@ -274,9 +274,11 @@ def make_parser(description: str = "Betapose (PyTorch)") -> argparse.ArgumentPar
                         "(extension; 0 = off)")
     p.add_argument("--host_loader", type=str, default="auto",
                    choices=("auto", "native", "threads", "procs"),
-                   help="host frame-decode backend: threads/procs = "
-                        "Python cv2 pools; auto = threads.  native (the "
-                        "C++ ring loader) is not ported yet and raises")
+                   help="host frame-decode backend: native = C++ "
+                        "threaded libpng/libjpeg ring loader (raises when "
+                        "it cannot build), threads/procs = Python cv2 "
+                        "pools, auto = native when it builds and the "
+                        "inputs are PNG/JPEG, else threads")
     p.add_argument("--save_img", default=False, action="store_true")
     p.add_argument("--vis", default=False, action="store_true")
     p.add_argument("--format", type=str)

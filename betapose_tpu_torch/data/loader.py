@@ -1,15 +1,15 @@
 """Host-side frame loading with background prefetch.
 
-Counterpart of the cv2 paths of `betapose_tpu/data/loader.py`: a thread
-pool (or a process pool) decodes images ahead of the device in fixed-size
-uint8 batches [B,H,W,3], in path order.  The C++ ring loader
-(`betapose_tpu/native/`) is not ported yet: `mode="native"` raises and
-`mode="auto"` takes the cv2 threads.
+A copy of `betapose_tpu/data/loader.py`: the C++ ring loader
+(`native/loader`), a cv2 thread pool or a cv2 process pool decodes images
+ahead of the device in fixed-size uint8 batches [B,H,W,3], in path order;
+`FrameCache` decodes a path list once into a memmap and serves it.
 """
 
 from __future__ import annotations
 
 import concurrent.futures as cf
+import json
 import multiprocessing as mp
 import os
 
@@ -17,8 +17,22 @@ import numpy as np
 
 
 def imread_rgb(path: str) -> np.ndarray:
-    """Read an image file to RGB uint8 HWC (cv2.cvtColor: the SIMD
-    conversion is far faster than a fancy-index flip)."""
+    """Read an image file to RGB uint8 HWC.
+
+    PNG/JPEG goes through the native C++ codecs when the library builds
+    (byte-identical to cv2 for PNG, and RGB directly, without cv2's BGR
+    detour); anything else, or a native failure (an exotic subformat, no
+    toolchain), takes cv2.  cv2.cvtColor rather than a fancy-index flip
+    there: the SIMD conversion is far faster."""
+    if os.path.splitext(path)[1].lower() in (".png", ".jpg", ".jpeg"):
+        from ..native import loader as native
+        try:
+            if native.available():
+                return native.imread_rgb(path)
+        except IOError:
+            if not os.path.exists(path):
+                raise FileNotFoundError(path)
+            # a subformat only cv2 decodes: fall through
     import cv2
     img = cv2.imread(path, cv2.IMREAD_COLOR)
     if img is None:
@@ -146,14 +160,101 @@ class PrefetchLoader:
 
 def make_loader(paths, batch_size: int, mode: str = "auto",
                 workers: int = 8, lookahead: int = 3):
-    """Select the host feed backend: "threads" or "auto" (cv2 thread pool),
-    "procs" (cv2 process pool).  "native" raises until the C++ loader is
-    ported."""
-    if mode == "native":
-        raise NotImplementedError(
-            "--host_loader native: the C++ ring loader is not ported yet "
-            "(ROADMAP); use threads or procs")
-    if mode not in ("auto", "threads", "procs"):
+    """Select the host feed backend; every backend yields padded
+    [B,H,W,3] uint8 batches in path order with a `batch_sizes` list.
+
+    mode:
+      - "native": the C++ libpng/libjpeg ring loader (`native/loader.cpp`),
+        decoding off the GIL on `workers` threads; raises when the
+        library cannot build (no g++ or codec headers).
+      - "threads" / "procs": the cv2 pools (PrefetchLoader).
+      - "auto": native when it builds and every input is a .png/.jpg/.jpeg
+        (the native codecs' scope), cv2 threads otherwise.  A codec-class
+        failure partway through a run (a subformat libpng/libjpeg rejects
+        and cv2 accepts, such as a CMYK JPEG) hands the remaining frames
+        to the cv2 pool instead of aborting.
+    """
+    paths = list(paths)
+    if mode not in ("auto", "native", "threads", "procs"):
         raise ValueError(f"unknown host_loader mode {mode!r}")
+    if mode in ("auto", "native"):
+        from ..native import loader as native
+        if mode == "native":
+            if not native.available():
+                raise RuntimeError(
+                    "--host_loader native: C++ loader unavailable "
+                    "(no g++ or libpng/libjpeg)")
+            return native.NativeLoader(paths, batch_size, workers, lookahead)
+        exts_ok = paths and all(
+            os.path.splitext(p)[1].lower() in (".png", ".jpg", ".jpeg")
+            for p in paths)
+        if exts_ok and native.available():
+            return native.NativeLoader(paths, batch_size, workers, lookahead)
     return PrefetchLoader(paths, batch_size, workers, lookahead,
                           use_processes=(mode == "procs"))
+
+
+class FrameCache:
+    """Pre-decoded frames: decode a path list once into a uint8 memmap
+    (.npy), then serve batches at disk or page-cache bandwidth.  For hosts
+    whose decode cannot keep up with the device, and for loops over a
+    fixed eval set.  A `.manifest.json` beside the cache pins the exact
+    (path, size) list it was built from."""
+
+    def __init__(self, paths, cache_path: str, workers: int = 8):
+        self.paths = list(paths)
+        self.cache_path = cache_path
+        if not os.path.exists(cache_path):
+            self._build(workers)
+        self.frames = np.load(cache_path, mmap_mode="r")
+        if len(self.frames) != len(self.paths):
+            raise ValueError(
+                f"cache {cache_path} holds {len(self.frames)} frames but "
+                f"{len(self.paths)} paths were given — delete the stale "
+                "cache or pass the original path list")
+        # a frame-count match is not identity: a cache of a reordered or
+        # different list of the same length would serve the wrong frames
+        manifest = self._manifest_path()
+        if not os.path.exists(manifest):
+            raise ValueError(
+                f"cache {cache_path} has no manifest ({manifest}) — built "
+                "by an older version or trimmed by hand; delete the cache "
+                "to rebuild it")
+        with open(manifest) as f:
+            recorded = json.load(f)
+        if recorded != self._manifest_entries():
+            raise ValueError(
+                f"cache {cache_path} was built from a different path list "
+                "(manifest mismatch) — delete the stale cache or pass the "
+                "original path list")
+
+    def _manifest_path(self):
+        return self.cache_path + ".manifest.json"
+
+    def _manifest_entries(self):
+        return [[p, os.path.getsize(p)] for p in self.paths]
+
+    def _build(self, workers):
+        first = imread_rgb(self.paths[0])
+        shape = (len(self.paths),) + first.shape
+        arr = np.lib.format.open_memmap(
+            self.cache_path, mode="w+", dtype=np.uint8, shape=shape)
+        arr[0] = first
+        with cf.ThreadPoolExecutor(workers) as pool:
+            def put(i):
+                arr[i] = imread_rgb(self.paths[i])
+            list(pool.map(put, range(1, len(self.paths))))
+        arr.flush()
+        with open(self._manifest_path(), "w") as f:
+            json.dump(self._manifest_entries(), f)
+
+    def batches(self, batch_size: int):
+        """Yield [B,H,W,3] uint8 batches (the tail padded as PrefetchLoader
+        pads it; the caller trims)."""
+        n = len(self.frames)
+        for s in range(0, n, batch_size):
+            batch = np.asarray(self.frames[s:s + batch_size])
+            if len(batch) < batch_size:
+                pad = np.repeat(batch[-1:], batch_size - len(batch), 0)
+                batch = np.concatenate([batch, pad])
+            yield batch

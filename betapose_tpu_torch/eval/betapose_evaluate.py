@@ -27,7 +27,8 @@ from betapose_tpu_torch.core.config import Config, make_parser
 from betapose_tpu_torch.core.device import resolve_device
 from betapose_tpu_torch.core.profiling import RuntimeProfile
 from betapose_tpu_torch.data import sixd as sixd_mod
-from betapose_tpu_torch.data.loader import list_images, make_loader
+from betapose_tpu_torch.data.loader import (FrameCache, list_images,
+                                             make_loader)
 from betapose_tpu_torch.eval import results as results_mod
 from betapose_tpu_torch.eval.pipeline import PipelineConfig, PosePipeline
 from betapose_tpu_torch.geometry import metrics
@@ -163,19 +164,29 @@ def build_pipeline(cfg: Config, args, kp_vertices, cam_K,
 
 
 def collect_results(pipeline, im_names, batch_size, profile=False,
-                    host_loader="auto"):
+                    host_loader="auto", frame_cache=None):
     """Run the pipeline over all frames; build the reference-format
     final_result list.  profile=True runs the three stages with a device
     synchronize after each and prints per-stage means (the reference's
-    det/pose/post readout, `betapose_evaluate.py:132-136,181-186`)."""
-    loader = make_loader(im_names, batch_size, mode=host_loader)
+    det/pose/post readout, `betapose_evaluate.py:132-136,181-186`).
+
+    frame_cache: the path of a `FrameCache` (.npy) to serve the frames
+    from instead of `host_loader`; it is built from `im_names` when it
+    does not exist.  Returns (final_result, frames/s of the frame loop)."""
+    if frame_cache is not None:
+        n = len(im_names)
+        batches = FrameCache(im_names, frame_cache).batches(batch_size)
+        batch_sizes = [min(batch_size, n - s) for s in range(0, n, batch_size)]
+    else:
+        batches = make_loader(im_names, batch_size, mode=host_loader)
+        batch_sizes = batches.batch_sizes
     final_result = []
     prof = RuntimeProfile()
     idx = 0
     t0 = time.time()
-    outs = pipeline.run_batches(loader, prof if profile else None)
+    outs = pipeline.run_batches(batches, prof if profile else None)
     for bi, out in enumerate(outs):
-        for j in range(loader.batch_sizes[bi]):
+        for j in range(batch_sizes[bi]):
             im_name = os.path.basename(im_names[idx])
             idx += 1
             if not out["det_valid"][j]:
@@ -258,7 +269,15 @@ def evaluate_metrics(final_result, sixd_base, obj_id, model_vertices,
     return stats
 
 
-def main(argv=None):
+def run_eval(argv=None, frame_cache=None, report=None, pipeline=None):
+    """The CLI's evaluation on the parsed `argv`: frames from `--indir` or
+    `--list` through `--host_loader` (or from the `FrameCache` at
+    `frame_cache`), the results JSON in `--outdir`, the metric prints.
+    Returns the stats dict with the frames/s of the frame loop, host
+    decode included.  report: a dict that receives the pipeline, the
+    image list and the final_result list.  pipeline: one built by an
+    earlier run on the same model flags (from its report), so that
+    several feeds or image sets are evaluated on networks loaded once."""
     args = make_parser("Betapose evaluation (PyTorch)").parse_args(argv)
     cfg = Config.from_args(args)
 
@@ -273,11 +292,16 @@ def main(argv=None):
     im_names = list_images(cfg.runtime.input_path, cfg.runtime.input_list)
     os.makedirs(cfg.runtime.output_path, exist_ok=True)
 
-    pipeline = build_pipeline(cfg, args, kp_vertices, bench.cam)
+    if pipeline is None:
+        pipeline = build_pipeline(cfg, args, kp_vertices, bench.cam)
     final_result, fps = collect_results(
         pipeline, im_names, max(cfg.detection.det_batch, 1),
-        profile=cfg.runtime.profile, host_loader=cfg.runtime.host_loader)
+        profile=cfg.runtime.profile, host_loader=cfg.runtime.host_loader,
+        frame_cache=frame_cache)
     print("===========================> Finish Model Running.")
+    if report is not None:
+        report.update(pipeline=pipeline, im_names=im_names,
+                      final_result=final_result)
 
     results_mod.write_json(final_result, cfg.runtime.output_path,
                            form=cfg.runtime.format)
@@ -286,6 +310,10 @@ def main(argv=None):
                              symmetric=obj_id in cfg.sym_objects)
     stats["fps"] = fps
     return stats
+
+
+def main(argv=None):
+    return run_eval(argv)
 
 
 if __name__ == "__main__":

@@ -55,6 +55,7 @@ from betapose_tpu_torch.models import kpd as kpd_mod
 from betapose_tpu_torch.models import yolov3 as yolo_mod
 from betapose_tpu_torch.tools.annotator import annotate_frame_exact
 from betapose_tpu_torch.train import kpd_train, yolo_train
+from betapose_tpu_torch.train.augment import DRAWS as augment_draws
 from betapose_tpu_torch.train.augment import AugmentConfig, augment_batch
 
 CAM_K = sixd_mod.LINEMOD_CAM_K
@@ -293,6 +294,15 @@ def resolved_precision(train_precision):
     return train_precision or kpd_train.DEFAULT_TRAIN_PRECISION
 
 
+def load_draws(path, names, device):
+    """The replayed draws of a training loop ({name: [iters, batch, ...]}
+    on `device`) from an .npz, or None without a path."""
+    if not path:
+        return None
+    with np.load(path) as z:
+        return {k: torch.as_tensor(z[k], device=device) for k in names}
+
+
 def batch_indices(rng, n, batch, iters, device):
     """The per-iteration batch indices of a training loop, drawn from the
     host `rng` in loop order (the draws of `iters` successive
@@ -315,7 +325,9 @@ def run_selftest(n_frames=60, n_eval=8, yolo_iters=250, kpd_iters=1500,
                  pnp_robust_rounds=0, occlusion=False, det_capacity=1,
                  pnp_score_power=0.0, train_precision=None,
                  net_type="resnet50", verbose=True, device=None,
-                 report=None, step_hook=None, eval_hook=None):
+                 report=None, step_hook=None, eval_hook=None,
+                 yolo_init=None, yolo_draws=None, kpd_init=None,
+                 kpd_draws=None):
     """Returns the stats dict of the JAX `run_selftest`.
 
     params_dir: when set, trained weights are saved there (yolo.weights
@@ -338,7 +350,16 @@ def run_selftest(n_frames=60, n_eval=8, yolo_iters=250, kpd_iters=1500,
     stage's result is on the host).  step_hook(stage, it): called after
     each training step of stage "yolo", "kpd" or "kpd_finetune".
     eval_hook(pipe, eval_frames): called after the eval with its
-    pipeline and frames, as in `tools/sweep.run_sweep`."""
+    pipeline and frames, as in `tools/sweep.run_sweep`.
+
+    yolo_init: a darknet .weights file the detector starts training from,
+    in place of the seeded init (another package's init, for one).
+    yolo_draws: an .npz of the detector loop's augmentation draws, one
+    array [yolo_iters, 16] per name of `train/yolo_train.DRAWS`, replayed
+    in place of the loop's generator.  kpd_init, kpd_draws: the same for
+    the KPD loop (a checkpoint `core/checkpoint.load_kpd_checkpoint`
+    reads; arrays [kpd_iters, kpd_batch, ...] per name of
+    `train/augment.DRAWS`)."""
     if net_type not in ("resnet50", "hgPRM"):
         raise ValueError(f"unsupported selftest net_type {net_type!r}")
     dev = resolve_device(device)
@@ -365,6 +386,11 @@ def run_selftest(n_frames=60, n_eval=8, yolo_iters=250, kpd_iters=1500,
             fp["train_precision"] = precision
         if net_type != "resnet50":
             fp["net_type"] = net_type
+        for name, path in (("yolo_init", yolo_init),
+                           ("yolo_draws", yolo_draws),
+                           ("kpd_init", kpd_init), ("kpd_draws", kpd_draws)):
+            if path:
+                fp[name] = os.path.basename(path)
         check_params_dir(params_dir, fp)
 
     # ---- stage 2: render + annotate ----
@@ -396,8 +422,14 @@ def run_selftest(n_frames=60, n_eval=8, yolo_iters=250, kpd_iters=1500,
         if verbose:
             print(f"yolo weights loaded from {ypath}")
     else:
-        yolo = yolo_mod.Darknet(spec, reso,
-                                torch.Generator().manual_seed(0)).to(dev)
+        if yolo_init:
+            yolo, _ = yolo_mod.load_darknet_weights(spec, yolo_init, reso,
+                                                    allow_partial=False)
+            yolo = yolo.to(dev)
+        else:
+            yolo = yolo_mod.Darknet(spec, reso,
+                                    torch.Generator().manual_seed(0)).to(dev)
+        replay = load_draws(yolo_draws, yolo_train.DRAWS, dev)
         ycfg = yolo_train.YoloTrainConfig(lr=1e-3, burn_in=200,
                                           steps=(10 ** 6,),
                                           scales=(0.1,), decay=5e-4)
@@ -420,7 +452,8 @@ def run_selftest(n_frames=60, n_eval=8, yolo_iters=250, kpd_iters=1500,
             sel = sels[it]
             imgs, tr = yolo_train.augment_detection_batch(
                 full_u8[sel].float() / 255.0, truths_d[sel], ycfg, reso,
-                reso, generator=gen)
+                reso, generator=gen, draws=None if replay is None else
+                {k: v[it] for k, v in replay.items()})
             ym = ystep(imgs, tr)
             if step_hook is not None:
                 step_hook("yolo", it)
@@ -441,9 +474,14 @@ def run_selftest(n_frames=60, n_eval=8, yolo_iters=250, kpd_iters=1500,
         if verbose:
             print(f"kpd weights loaded from {kpath}")
     else:
-        gen_w = torch.Generator().manual_seed(1)
-        kpd = (hgprm.PyraNet(n_kp, generator=gen_w) if arch == "hgPRM"
-               else kpd_mod.FastPose(n_kp, "resnet50", gen_w)).to(dev)
+        if kpd_init:
+            kpd = ckpt.load_kpd_checkpoint(kpd_init, n_classes=n_kp,
+                                           arch=arch).to(dev)
+        else:
+            gen_w = torch.Generator().manual_seed(1)
+            kpd = (hgprm.PyraNet(n_kp, generator=gen_w) if arch == "hgPRM"
+                   else kpd_mod.FastPose(n_kp, "resnet50", gen_w)).to(dev)
+        kreplay = load_draws(kpd_draws, augment_draws, dev)
         # gentle augmentation for the toy task: the cube's mirror image
         # never occurs, and the tiny training budget can't absorb
         # flip/rotate noise
@@ -473,9 +511,11 @@ def run_selftest(n_frames=60, n_eval=8, yolo_iters=250, kpd_iters=1500,
             t0 = time.perf_counter()
             for it in range(iters):
                 sel = sels[it]
-                batch = augment_batch(imgs_u8[sel].float() / 255.0,
-                                      bboxes_d[sel], parts_d[sel], aug_cfg,
-                                      generator=gen)
+                batch = augment_batch(
+                    imgs_u8[sel].float() / 255.0, bboxes_d[sel],
+                    parts_d[sel], aug_cfg, generator=gen,
+                    draws=None if kreplay is None or stage != "kpd" else
+                    {k: v[it] for k, v in kreplay.items()})
                 km = kstep(batch)
                 if step_hook is not None:
                     step_hook(stage, it)

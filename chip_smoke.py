@@ -120,7 +120,28 @@ result line):
    (with random weights the best box is an argmax over near-tied
    objectness scores, so the raw heads' distance from the float32
    network's is printed as well).
-13. `tools/profile_pipeline` (capacity 1 and 4), `tools/probe_conv_mfu`
+13. The main path from image files: 64 seeded 480x640 PNG frames
+   (`tools/probe_feed.make_png_pool`) and 8 JPEGs in a temporary
+   directory, with a minimal SIXD tree.  Where the C++ ring loader builds
+   (g++ with the libpng/libjpeg headers), `make_loader("native")` serves
+   every frame byte-equal to cv2 with no hand-off, and native JPEG decodes
+   equal cv2's; where it cannot, `make_loader("native")` must raise and
+   "auto" must take the cv2 threads.  Then the eval CLI
+   (`eval/betapose_evaluate.run_eval`) at full width, batch 8, capacity 1,
+   on phase 3's seeded networks written to a .weights and a .pth file:
+   from the PNG directory through native (or the cv2 processes where
+   native cannot build), the cv2 threads and a FrameCache.  The results
+   JSONs are identical; decode launched once per batch in each run (the
+   count set to 0 before it and read after) and bitwise equal to its plain
+   version on the run's own heatmaps; frames/s from files (host decode
+   included) and the device busy share per feed (a profiled second run's
+   device time over the unprofiled frame loop).  Then `entry()`'s step on
+   the card (decode launched once), `detector test` and `detector valid`
+   on the card against the CPU on six seeded 64x64 frames with seeded
+   .weights (the same count and classes, scores within 2e-3, boxes within
+   0.5 px), and `probe_feed`'s curve over 1, 2, 4 and 8 workers
+   (`{"probe_feed": ...}` and `{"host_feed": ...}` lines).
+14. `tools/profile_pipeline` (capacity 1 and 4), `tools/probe_conv_mfu`
    and `tools/probe_s2d_stage` once each at reduced iterations.
 
 Then a `{"kernels": [...]}` JSON line (per kernel: launches on its path,
@@ -1827,6 +1848,374 @@ def phase_yolo_rounding(torch, np, pipe, frames, card):
               f"more than 1 px in {boxes} (at most {worst:.3g} px)")
 
 
+VERB_CFG = """[net]
+width=64
+height=64
+channels=3
+
+[convolutional]
+batch_normalize=1
+filters=16
+size=3
+stride=2
+pad=1
+activation=leaky
+
+[convolutional]
+batch_normalize=1
+filters=32
+size=3
+stride=2
+pad=1
+activation=leaky
+
+[convolutional]
+size=1
+stride=1
+pad=1
+filters=18
+activation=linear
+
+[yolo]
+mask = 0,1,2
+anchors = 10,13,  16,30,  33,23
+classes=1
+num=3
+ignore_thresh = .7
+"""
+# the verbs' card-vs-CPU bar (tests/test_torch_darknet_cli.py)
+VERB_SCORE_TOL, VERB_BOX_TOL_PX = 2e-3, 0.5
+
+
+def write_sixd_tree(np, root, n_frames):
+    """A minimal SIXD tree for the eval CLI (one 8 cm cube, the LineMod
+    camera, one ground-truth pose per frame): models, kpmodels,
+    models_info.yml, test/01/gt.yml and info.yml."""
+    import os
+    import yaml
+    from betapose_tpu_torch.data import ply as plyio
+    rng = np.random.default_rng(0)
+    s = 40.0
+    corners = np.array([[x, y, z] for x in (-s, s) for y in (-s, s)
+                        for z in (-s, s)])
+    surface = rng.uniform(-s, s, (400, 3))
+    surface[np.arange(400), rng.integers(0, 3, 400)] = \
+        rng.choice([-1.0, 1.0], 400) * s
+    verts = np.concatenate([corners, surface])
+    for d in ("models", "kpmodels", os.path.join("test", "01")):
+        os.makedirs(os.path.join(root, d), exist_ok=True)
+    plyio.write_vertices_ascii(os.path.join(root, "models", "obj_01.ply"),
+                               verts)
+    plyio.write_vertices_ascii(os.path.join(root, "kpmodels", "obj_01.ply"),
+                               verts[rng.choice(len(verts), 60,
+                                                replace=False)])
+    with open(os.path.join(root, "models", "models_info.yml"), "w") as f:
+        yaml.safe_dump({1: {"diameter": float(2 * s * np.sqrt(3))}}, f)
+    gt = [{"cam_R_m2c": [1.0, 0, 0, 0, 1.0, 0, 0, 0, 1.0],
+           "cam_t_m2c": [[0.0], [0.0], [700.0]],
+           "obj_bb": [270, 190, 100, 100], "obj_id": 1}]
+    with open(os.path.join(root, "test", "01", "gt.yml"), "w") as f:
+        yaml.safe_dump({i: gt for i in range(n_frames)}, f)
+    info = {"cam_K": [v for row in CAM_K for v in row]}
+    with open(os.path.join(root, "test", "01", "info.yml"), "w") as f:
+        yaml.safe_dump({i: info for i in range(n_frames)}, f)
+
+
+def verb_dataset(np, root):
+    """Six seeded 64x64 frames with a bright square each, darknet labels,
+    .data/.names/.cfg, and seeded .weights (torch seed 0, the batch norms
+    given non-trivial statistics)."""
+    import os
+    import cv2
+    import torch
+    from betapose_tpu_torch.models import yolov3 as yolo_mod
+    os.makedirs(os.path.join(root, "images"), exist_ok=True)
+    rng = np.random.default_rng(0)
+    paths = []
+    for i in range(6):
+        img = rng.integers(0, 60, (64, 64, 3), dtype=np.uint8)
+        x, y = 16 + 4 * i % 20, 20 + 3 * i % 18
+        img[y:y + 20, x:x + 20] = 220
+        p = os.path.join(root, "images", f"{i:04d}.png")
+        cv2.imwrite(p, img)
+        with open(p[:-4] + ".txt", "w") as f:
+            f.write(f"0 {(x + 10) / 64} {(y + 10) / 64} {20 / 64} "
+                    f"{20 / 64}\n")
+        paths.append(p)
+    with open(os.path.join(root, "all.txt"), "w") as f:
+        f.writelines(p + "\n" for p in paths)
+    with open(os.path.join(root, "obj.names"), "w") as f:
+        f.write("thing\n")
+    data = os.path.join(root, "obj.data")
+    with open(data, "w") as f:
+        f.write(f"classes = 1\ntrain = {root}/all.txt\n"
+                f"valid = {root}/all.txt\nnames = {root}/obj.names\n")
+    cfg = os.path.join(root, "net.cfg")
+    with open(cfg, "w") as f:
+        f.write(VERB_CFG)
+    model = yolo_mod.Darknet(yolo_mod.build_spec(VERB_CFG), 64,
+                             torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for _, m in yolo_mod.conv_layers(model):
+            if m.bn is not None:
+                n = m.bn.weight.shape
+                m.bn.weight.copy_(0.5 + torch.rand(n, generator=g))
+                m.bn.bias.copy_(0.1 * torch.randn(n, generator=g))
+                m.bn.running_mean.copy_(0.1 * torch.randn(n, generator=g))
+                m.bn.running_var.copy_(0.5 + 1.5 * torch.rand(n, generator=g))
+    weights = os.path.join(root, "seeded.weights")
+    yolo_mod.save_darknet_weights(model, weights)
+    return data, cfg, weights, paths
+
+
+def hold_verb_dets(np, card_dets, cpu_dets, verb):
+    """The card's detections against the CPU's: the same count and classes
+    per image, scores and boxes within the verbs' bar.  Returns (score,
+    box) max differences."""
+    check(len(card_dets) == len(cpu_dets), f"detector {verb}: image count")
+    worst = [0.0, 0.0]
+    for g, c in zip(card_dets, cpu_dets):
+        g, c = np.asarray(g), np.asarray(c)
+        check(g.shape == c.shape, f"detector {verb}: {len(g)} detections on "
+              f"the card against {len(c)} on the CPU")
+        check(np.array_equal(g[:, 5], c[:, 5]), f"detector {verb}: classes")
+        if len(g):
+            worst[0] = max(worst[0], float(np.abs(g[:, 4] - c[:, 4]).max()))
+            worst[1] = max(worst[1], float(np.abs(g[:, :4] - c[:, :4]).max()))
+    check(worst[0] <= VERB_SCORE_TOL and worst[1] <= VERB_BOX_TOL_PX,
+          f"detector {verb}: card vs CPU scores {worst[0]:.3g}, boxes "
+          f"{worst[1]:.3g} px")
+    return worst
+
+
+def phase_host_feed(torch, np, kernels, card):
+    """The main path from image files: the host feed (the C++ ring loader,
+    the cv2 pools, a FrameCache) into the eval CLI at full width, the
+    port's entry(), the detector verbs on the card against the CPU, and
+    probe_feed's scaling curve."""
+    import contextlib as _cl
+    import io
+    import os
+    import shutil
+    import tempfile
+    import cv2
+    from betapose_tpu_torch.data import loader as loader_mod
+    from betapose_tpu_torch.entry import entry
+    from betapose_tpu_torch.eval import betapose_evaluate as ev
+    from betapose_tpu_torch.models import kpd as kpd_mod
+    from betapose_tpu_torch.models import yolov3 as yolo_mod
+    from betapose_tpu_torch.models.darknet_cfg import make_yolov3_cfg
+    from betapose_tpu_torch.native import loader as native
+    from betapose_tpu_torch.ops.kernels import bottleneck_chain as bc
+    from betapose_tpu_torch.ops.kernels import heatmap_decode as hd
+    from betapose_tpu_torch.tools import darknet_cli, probe_feed
+
+    n_frames, batch = 64, 8
+    root = tempfile.mkdtemp(prefix="host_feed_smoke_")
+    try:
+        t0 = time.perf_counter()
+        png_dir = os.path.join(root, "png")
+        jpg_dir = os.path.join(root, "jpg")
+        os.makedirs(png_dir)
+        os.makedirs(jpg_dir)
+        pngs = probe_feed.make_png_pool(png_dir, n_frames)
+        jpgs = []
+        for i, p in enumerate(pngs[:8]):
+            j = os.path.join(jpg_dir, f"{i:06d}.jpg")
+            cv2.imwrite(j, cv2.imread(p))
+            jpgs.append(j)
+        sixd = os.path.join(root, "sixd")
+        write_sixd_tree(np, sixd, n_frames)
+        print(f"host feed: wrote {n_frames} 480x640 PNG frames "
+              f"({sum(os.path.getsize(p) for p in pngs) / 2**20:.1f} MiB) "
+              f"and 8 JPEGs in {time.perf_counter() - t0:.1f} s")
+
+        # the C++ ring loader, where the machine can build it
+        have_native = native.available()
+        if have_native:
+            loader = loader_mod.make_loader(pngs, batch, mode="native")
+            check(isinstance(loader, native.NativeLoader),
+                  "make_loader('native') did not give the ring loader")
+            got = list(loader)
+            check(loader.fallbacks == 0 and len(got) == n_frames // batch,
+                  "the ring loader handed frames to cv2 or lost batches")
+            for i, p in enumerate(pngs):
+                check(np.array_equal(got[i // batch][i % batch],
+                                     cv2.cvtColor(cv2.imread(p),
+                                                  cv2.COLOR_BGR2RGB)),
+                      f"native PNG decode differs from cv2's on {p}")
+            for j in jpgs:
+                check(np.array_equal(native.imread_rgb(j), cv2.cvtColor(
+                    cv2.imread(j), cv2.COLOR_BGR2RGB)),
+                      f"native JPEG decode differs from cv2's on {j}")
+            check(isinstance(loader_mod.make_loader(pngs, batch),
+                             native.NativeLoader), "auto did not take native")
+            print(f"host feed: the ring loader served all {n_frames} PNG "
+                  f"frames byte-equal to cv2 (no hand-off); 8 JPEGs equal "
+                  f"to cv2's")
+            feeds = ("native", "threads", "cache")
+        else:
+            try:
+                loader_mod.make_loader(pngs, batch, mode="native")
+                fail("make_loader('native') did not raise where the C++ "
+                     "loader cannot build")
+            except RuntimeError as e:
+                check("C++ loader unavailable" in str(e),
+                      f"make_loader('native') raised {e!r}")
+            auto = loader_mod.make_loader(pngs, batch)
+            check(isinstance(auto, loader_mod.PrefetchLoader)
+                  and not auto.use_processes,
+                  "auto did not take the cv2 threads")
+            for j in jpgs:
+                check(np.array_equal(loader_mod.imread_rgb(j), cv2.cvtColor(
+                    cv2.imread(j), cv2.COLOR_BGR2RGB)), "imread_rgb JPEG")
+            print("host feed: the C++ ring loader cannot build on this "
+                  "machine (no libpng/libjpeg headers): make_loader('native')"
+                  " raises, auto takes the cv2 threads; the feeds below are "
+                  "the cv2 threads, the cv2 processes and a FrameCache")
+            feeds = ("threads", "procs", "cache")
+
+        # the main path's seeded networks, as files the CLI loads
+        spec = yolo_mod.build_spec(make_yolov3_cfg(1, 416, 416))
+        yolo = yolo_mod.Darknet(spec, 416, torch.Generator().manual_seed(0))
+        calibrate_yolo_heads(torch, yolo.cuda(), torch.as_tensor(np.stack(
+            [cv2.cvtColor(cv2.imread(p), cv2.COLOR_BGR2RGB)
+             for p in pngs[:batch]])).cuda(), 416)
+        yw = os.path.join(root, "yolo.weights")
+        yolo_mod.save_darknet_weights(yolo.cpu(), yw)
+        kw = os.path.join(root, "kpd.pth")
+        torch.save(kpd_mod.FastPose(50, "resnet101", torch.Generator()
+                                    .manual_seed(1)).state_dict(), kw)
+        del yolo
+
+        def argv(mode, out):
+            return ["--indir", png_dir, "--outdir", out, "--obj_id", "1",
+                    "--sixd_base", sixd, "--detbatch", str(batch),
+                    "--host_loader", mode, "--yolo_weights", yw,
+                    "--kpd_weights", kw]
+
+        def run(feed, pipeline, out):
+            report = {}
+            cache = os.path.join(root, "frames.npy") if feed == "cache" \
+                else None
+            with _cl.redirect_stdout(io.StringIO()):
+                stats = ev.run_eval(
+                    argv("threads" if feed == "cache" else feed, out),
+                    frame_cache=cache, report=report, pipeline=pipeline)
+            return stats, report
+
+        # warm-up: loads the networks once; builds the FrameCache
+        t0 = time.perf_counter()
+        _, rep = run("threads", None, os.path.join(root, "warm"))
+        pipe = rep["pipeline"]
+        loader_mod.FrameCache(pngs, os.path.join(root, "frames.npy"))
+        print(f"host feed: eval CLI networks loaded and warm in "
+              f"{time.perf_counter() - t0:.1f} s (YOLOv3-416 + FastPose "
+              f"SE-ResNet101, bf16, batch {batch}, capacity 1)")
+        results, rows = {}, {}
+        for feed in feeds:
+            out = os.path.join(root, f"out_{feed}")
+            hd.decode_peaks.launches = bc.bottleneck_chain.launches = 0
+            stats, rep = run(feed, pipe, out)
+            torch.cuda.synchronize()
+            n = hd.decode_peaks.launches
+            check(n == n_frames // batch, f"host feed ({feed}): decode_peaks "
+                  f"launched {n} times for {n_frames // batch} batches")
+            check(bc.bottleneck_chain.launches == 0,
+                  f"host feed ({feed}): bottleneck_chain launched")
+            with open(os.path.join(out, "Betapose-results.json"), "rb") as f:
+                results[feed] = f.read()
+            check(len(rep["final_result"]) == n_frames,
+                  f"host feed ({feed}): {len(rep['final_result'])} results")
+            rows[feed] = {"frames_per_s": stats["fps"], "decode_launches": n}
+        check(len(set(results.values())) == 1, "host feed: the results "
+              f"JSONs of {feeds} differ")
+        kernels["decode_peaks"]["launches_per_path"]["host_feed"] = \
+            rows[feeds[0]]["decode_launches"]
+        kernels["bottleneck_chain"]["launches_per_path"]["host_feed"] = 0
+        data = json.loads(results[feeds[0]])
+        check(len(data) > 0 and all(np.isfinite(d["cam_t"] + d["cam_R"]
+                                                + d["keypoints"]).all()
+                                    for d in data),
+              "host feed: results not finite")
+
+        # the busy share of each feed: device time of a profiled run
+        # against the unprofiled run's frame loop
+        from torch.profiler import ProfilerActivity, profile
+        for feed in feeds:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                run(feed, pipe, os.path.join(root, f"prof_{feed}"))
+                torch.cuda.synchronize()
+            busy_ms = device_busy_us(torch, prof.key_averages()) / 1e3
+            wall_ms = n_frames / rows[feed]["frames_per_s"] * 1e3
+            rows[feed]["device_busy_share"] = busy_ms / wall_ms
+            print(f"host feed ({feed}): {n_frames} frames from files at "
+                  f"{rows[feed]['frames_per_s']:.1f} frames/s, batch {batch},"
+                  f" host decode included; device busy {busy_ms:.1f} ms of "
+                  f"{wall_ms:.1f} ms ({100 * busy_ms / wall_ms:.0f}%), "
+                  f"decode launched {rows[feed]['decode_launches']} times "
+                  f"[{card}]")
+        print(f"host feed: the results JSONs of {', '.join(feeds)} are "
+              f"identical ({len(data)} poses)")
+
+        # decode on the run's own heatmaps (the first batch)
+        first = next(loader_mod.FrameCache(
+            pngs, os.path.join(root, "frames.npy")).batches(batch))
+        with torch.inference_mode():
+            det = pipe.det_stage(pipe.yolo, pipe.to_device(first))
+            hm = pipe.pose_stage(pipe.kpd, det["crops"])
+        check(tuple(hm.shape) == (batch, 50, 80, 64), f"heatmaps {hm.shape}")
+        hold_decode(torch, hm, kernels["decode_peaks"], "host_feed", card)
+        del pipe, rep
+
+        # entry(): the capacity-1 step on the card, as a user calls it
+        fn, args = entry()
+        hd.decode_peaks.launches = 0
+        out = fn(*args)
+        torch.cuda.synchronize()
+        check(hd.decode_peaks.launches == 1, "entry(): decode launches")
+        for k, shp in (("boxes", (4, 4)), ("keypoints", (4, 50, 2)),
+                       ("cam_t", (4, 3))):
+            check(tuple(out[k].shape) == shp, f"entry(): {k} {out[k].shape}")
+        print(f"entry(): the capacity-1 step on the card on its example "
+              f"arguments (batch 4 of 480x640): keys {sorted(out)}")
+        del fn, args, out
+
+        # the detector verbs on the card against the CPU
+        vdir = os.path.join(root, "verbs")
+        data_f, cfg_f, w_f, vpaths = verb_dataset(np, vdir)
+        with _cl.redirect_stdout(io.StringIO()):
+            test = [darknet_cli.cmd_test(data_f, cfg_f, w_f, vpaths[0],
+                                         thresh=0.3, device=d)
+                    for d in ("cuda", "cpu")]
+            valid = [darknet_cli.cmd_valid(
+                data_f, cfg_f, w_f, thresh=0.3, device=d,
+                out_dir=os.path.join(vdir, f"results_{d}"))
+                for d in ("cuda", "cpu")]
+        t_err = hold_verb_dets(np, [test[0]], [test[1]], "test")
+        v_err = hold_verb_dets(np, valid[0], valid[1], "valid")
+        print(f"detector test / valid on the card against the CPU: "
+              f"{len(test[0])} and {sum(len(d) for d in valid[0])} "
+              f"detections, equal counts and classes, scores within "
+              f"{max(t_err[0], v_err[0]):.2e}, boxes within "
+              f"{max(t_err[1], v_err[1]):.2e} px (bar {VERB_SCORE_TOL}, "
+              f"{VERB_BOX_TOL_PX} px)")
+        check(sum(len(d) for d in valid[0]) > 0, "detector valid: none")
+
+        # the feed's scaling over workers
+        res = probe_feed.run_probe(workers_list=(1, 2, 4, 8), frames=64,
+                                   batch=8, loaders=("native", "threads",
+                                                     "procs"))
+        print(json.dumps({"probe_feed": res}))
+        print(json.dumps({"host_feed": {"feeds": rows, "native": have_native,
+                                        "frames": n_frames, "batch": batch,
+                                        "card": card}}))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def phase_tools(card):
     """The other tools once each, at reduced iterations."""
     from betapose_tpu_torch.tools import (probe_conv_mfu, probe_s2d_stage,
@@ -2037,6 +2426,7 @@ def main():
     phase_probe_path(torch, kernels, card)
     phase_s2d_stem(torch, np, pipe, frames, card)
     phase_yolo_rounding(torch, np, pipe, frames, card)
+    phase_host_feed(torch, np, kernels, card)
     phase_tools(card)
 
     print(json.dumps({"kernels": list(kernels.values())}))

@@ -18,6 +18,7 @@ from betapose_tpu_torch.data import loader as port_loader  # noqa: E402
 from betapose_tpu_torch.eval import betapose_evaluate  # noqa: E402
 from betapose_tpu_torch.models import yolov3 as yolo_mod  # noqa: E402
 from betapose_tpu_torch.models.darknet_cfg import make_yolov3_cfg  # noqa: E402
+from betapose_tpu_torch.native import loader as native_loader  # noqa: E402
 
 
 def _argv(sixd, out, *extra):
@@ -62,14 +63,19 @@ def test_eval_cli_writes_results_and_metrics(tmp_path):
     assert set(stats) >= {"mean_add", "mean_2d_acc", "mean_iou", "fps"}
 
 
-def test_eval_cli_refuses_what_it_cannot_run(tmp_path):
+def test_eval_cli_refuses_what_it_cannot_run(tmp_path, monkeypatch):
     sixd = make_synthetic_sixd(tmp_path, n_frames=1)
     out = str(tmp_path / "out")
     with pytest.raises(FileNotFoundError):
         betapose_evaluate.main(_argv(sixd, out, "--yolo_weights",
                                      str(tmp_path / "missing.weights")))
-    with pytest.raises(NotImplementedError):
-        betapose_evaluate.main(_argv(sixd, out, "--host_loader", "native"))
+    # --host_loader native raises where the C++ loader cannot build (it
+    # runs where it builds: test_eval_cli_feeds_give_the_same_results)
+    with monkeypatch.context() as m:
+        m.setattr(native_loader, "available", lambda: False)
+        with pytest.raises(RuntimeError, match="C\\+\\+ loader unavailable"):
+            betapose_evaluate.main(_argv(sixd, out, "--host_loader",
+                                         "native"))
     # the multi-candidate path, refused before it was ported, now runs
     weights = _zero_yolo_weights(tmp_path / "zero.weights")
     stats = betapose_evaluate.main(_argv(sixd, out, "--det_capacity", "3",
@@ -127,3 +133,30 @@ def test_loader_threads_and_procs_give_the_same_padded_batches(tmp_path):
         np.testing.assert_array_equal(a, b)
     np.testing.assert_array_equal(got["threads"][2][1],
                                   got["threads"][2][0])   # padded tail
+
+
+def test_eval_cli_feeds_give_the_same_results(tmp_path):
+    """The CLI from PNG files through the C++ ring loader
+    (`--host_loader native`), the cv2 threads and a `FrameCache` writes
+    the same results JSON, byte for byte: every feed decodes the same
+    pixels (native PNG decodes are cv2's, tests/test_torch_native_loader.py)."""
+    if not native_loader.available():
+        pytest.skip("the native loader cannot build here (no g++ or "
+                    "libpng/libjpeg)")
+    sixd = make_synthetic_sixd(tmp_path, n_frames=5)
+    weights = _zero_yolo_weights(tmp_path / "zero.weights")
+    got = {}
+    for feed in ("native", "threads", "cache"):
+        out = str(tmp_path / feed)
+        argv = _argv(sixd, out, "--yolo_weights", weights, "--host_loader",
+                     "threads" if feed == "cache" else feed)
+        report = {}
+        stats = betapose_evaluate.run_eval(
+            argv, frame_cache=(str(tmp_path / "frames.npy")
+                               if feed == "cache" else None), report=report)
+        assert stats["fps"] > 0 and len(report["final_result"]) == 5
+        with open(os.path.join(out, "Betapose-results.json"), "rb") as f:
+            got[feed] = f.read()
+    assert os.path.exists(tmp_path / "frames.npy.manifest.json")
+    assert len(json.loads(got["native"])) == 5
+    assert got["native"] == got["threads"] == got["cache"]

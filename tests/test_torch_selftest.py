@@ -272,3 +272,197 @@ def test_cli_tiers_match_jax(argv, monkeypatch):
     assert got["ours"] == got["jax"]
     st.main(argv + ["--device", "cpu"])
     assert got["ours"]["device"] == "cpu"
+
+
+# ------------------------------------------- the comparison's precision
+
+def test_jax_bfloat16_conv_on_the_cpu_is_its_float32_conv():
+    """Why the packages' CPU comparisons run at float32: under the JAX
+    package's default train precision, `jax.default_matmul_precision(
+    "bfloat16")`, XLA:CPU computes the float32 conv bit for bit, not the
+    conv of bf16-rounded operands, which the port's "bfloat16" mode
+    computes on every device (`models/precision.Conv2d`)."""
+    rng = np.random.default_rng(0)
+    x = jnp.asarray(rng.standard_normal((2, 16, 16, 32)), jnp.float32)
+    w = jnp.asarray(rng.standard_normal((3, 3, 32, 64)) * 0.1, jnp.float32)
+
+    def conv(x, w):
+        return jax.lax.conv_general_dilated(
+            x, w, (1, 1), "SAME", dimension_numbers=("NHWC", "HWIO", "NHWC"))
+
+    with jax.default_matmul_precision("float32"):
+        f32 = np.asarray(jax.jit(conv)(x, w))
+    with jax.default_matmul_precision("bfloat16"):
+        bf16_mode = np.asarray(jax.jit(conv)(x, w))
+    rounded = np.asarray(jax.jit(conv)(x.astype(jnp.bfloat16).astype(
+        jnp.float32), w.astype(jnp.bfloat16).astype(jnp.float32)))
+    np.testing.assert_array_equal(bf16_mode, f32)
+    assert np.abs(rounded - f32).max() > 1e-2
+
+    # the port's "bfloat16" mode is the conv of the rounded operands
+    from betapose_tpu_torch.models.precision import Conv2d, conv_precision
+    conv_t = Conv2d(32, 64, 3, padding=1, bias=False)
+    with torch.no_grad():
+        conv_t.weight.copy_(torch.from_numpy(
+            np.asarray(w).transpose(3, 2, 0, 1).copy()))
+    xt = torch.from_numpy(np.asarray(x).transpose(0, 3, 1, 2).copy())
+    with conv_precision(conv_t, "bfloat16"), torch.no_grad():
+        port_bf16 = conv_t(xt).numpy().transpose(0, 2, 3, 1)
+    np.testing.assert_allclose(port_bf16, rounded, rtol=0, atol=1e-4)
+    assert np.abs(port_bf16 - f32).max() > 1e-2
+
+
+@pytest.mark.parametrize("precision", ["float32", "bfloat16"])
+def test_selftest_seeds_passes_the_precision_to_both_packages(precision,
+                                                              monkeypatch):
+    import subprocess
+    import selftest_seeds
+    codes = []
+
+    def fake_run(cmd, **kw):
+        codes.append(cmd[-1])
+        return subprocess.CompletedProcess(
+            cmd, 0, stdout='STATS {"mean_add_m": 0.1}\n', stderr="")
+    monkeypatch.setattr(selftest_seeds.subprocess, "run", fake_run)
+    rows = [selftest_seeds.run_one(pkg, 0, 1, precision,
+                                   torch_device="cuda")
+            for pkg in ("jax", "torch")]
+    for code in codes:
+        assert f"train_precision={precision!r}" in code
+    assert "betapose_tpu.tools.selftest" in codes[0]
+    assert "'device': 'cuda'" in codes[1]
+    assert [r["train_precision"] for r in rows] == [precision] * 2
+    assert [r["device"] for r in rows] == ["cpu", "cuda"]
+    seen = []
+    monkeypatch.setattr(selftest_seeds, "run_one",
+                        lambda pkg, s, th, p, *rest: seen.append((pkg, s, p))
+                        or {"package": pkg, "seed": s, "wall_s": 0,
+                            "stats": {"mean_add_m": 0.1, "add_01d_acc": 0,
+                                      "median_add_m": 0.1, "mean_2d_px": 1,
+                                      "n_detected": 1, "mean_iou": 0.5}})
+    selftest_seeds.main(["--seeds", "0,1", "--jobs", "1",
+                         "--train_precision", precision])
+    assert sorted(seen) == [("jax", 0, precision), ("jax", 1, precision),
+                            ("torch", 0, precision), ("torch", 1, precision)]
+
+
+def test_selftest_starts_from_a_given_init_and_replays_draws(tmp_path):
+    """`run_selftest(yolo_init=, yolo_draws=)`, the hooks through which
+    selftest_seeds.py --swap hands the JAX package's detector init and
+    loop draws to the port: a .weights init is where training starts
+    (0 iterations save it unchanged), and replaying the draws the loop's
+    own generator would make trains the same detector as the generator."""
+    from betapose_tpu_torch.models import yolov3 as port_yolo
+    from betapose_tpu_torch.train import yolo_train as port_train
+    spec = port_yolo.build_spec(st.YOLO_CFG.format(reso=96))
+    init = port_yolo.Darknet(spec, 96, torch.Generator().manual_seed(5))
+    init_path = str(tmp_path / "init.weights")
+    port_yolo.save_darknet_weights(init, init_path)
+    kw = dict(TINY, kpd_iters=0, device="cpu")
+
+    def trained(name, **extra):
+        d = tmp_path / name
+        st.run_selftest(params_dir=str(d), **{**kw, **extra})
+        m, _ = port_yolo.load_darknet_weights(spec, str(d / "yolo.weights"),
+                                              96)
+        return port_yolo.params_to_jax(m)
+
+    got = trained("zero", yolo_init=init_path, yolo_iters=0)
+    for a, b in zip(got, port_yolo.params_to_jax(init)):
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k])
+
+    gen = torch.Generator().manual_seed(3)
+    ycfg = port_train.YoloTrainConfig()
+    rows = [port_train.draw_random(16, 480, 640, ycfg, gen)
+            for _ in range(2)]
+    draws = str(tmp_path / "draws.npz")
+    np.savez(draws, **{k: np.stack([r[k].numpy() for r in rows])
+                       for k in port_train.DRAWS})
+    own, replayed = trained("own"), trained("replayed", yolo_draws=draws)
+    for a, b in zip(own, replayed):
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k])
+    np.savez(draws, **{k: np.stack([r[k].numpy()[::-1] for r in rows])
+                       for k in port_train.DRAWS})
+    other = trained("other", yolo_draws=draws)
+    assert any(not np.array_equal(a[k], b[k])
+               for a, b in zip(own, other) for k in a)
+
+    # the KPD loop's hooks: an .npz init, and its generator's draws
+    from betapose_tpu_torch.core import checkpoint as port_ckpt
+    from betapose_tpu_torch.models import kpd as port_kpd
+    from betapose_tpu_torch.train import augment as port_aug
+    kinit = port_kpd.FastPose(8, "resnet50", torch.Generator().manual_seed(7))
+    kinit_path = str(tmp_path / "kinit.npz")
+    port_ckpt.save_kpd_npz(kinit_path, kinit)
+
+    def kpd_sd(name, **extra):
+        d = tmp_path / name
+        st.run_selftest(params_dir=str(d), **{**kw, "yolo_iters": 0,
+                                              **extra})
+        return port_ckpt.load_kpd_checkpoint(str(d / "kpd.npz"), 8,
+                                             "resnet50").state_dict()
+
+    for k, v in kpd_sd("k0", kpd_init=kinit_path).items():
+        assert torch.equal(v, kinit.state_dict()[k]), k
+    kgen = torch.Generator().manual_seed(2)
+    acfg = port_aug.AugmentConfig()
+    krows = [port_aug.draw_random(8, acfg, kgen) for _ in range(2)]
+    kdraws = str(tmp_path / "kdraws.npz")
+    np.savez(kdraws, **{k: np.stack([r[k].numpy() for r in krows])
+                        for k in port_aug.DRAWS})
+    own_k = kpd_sd("kown", kpd_iters=2)
+    rep_k = kpd_sd("krep", kpd_iters=2, kpd_draws=kdraws)
+    for k, v in own_k.items():
+        assert torch.equal(v, rep_k[k]), k
+
+
+def test_selftest_seeds_swap_writes_the_jax_loops_init_and_draws(tmp_path):
+    """selftest_seeds.py --swap: the .weights file is the JAX package's
+    seeded detector init, and the draws are those its fast-tier loop makes
+    (PRNGKey(3) split once per iteration, then per sample)."""
+    import selftest_seeds
+    from betapose_tpu.train import yolo_train as jax_train
+    from betapose_tpu_torch.models import yolov3 as port_yolo
+    from tests.test_torch_yolo_train import jax_aug_draws
+    paths = selftest_seeds.write_swap(str(tmp_path), 3, 2)
+    init, draws = paths["init"], paths["draws"]
+    spec = jax_yolo.build_spec(jax_st.YOLO_CFG.format(reso=192))
+    ref = jax_yolo.init_params(jax.random.PRNGKey(0), spec)
+    got = port_yolo.params_to_jax(port_yolo.load_darknet_weights(
+        port_yolo.build_spec(st.YOLO_CFG.format(reso=192)), init, 192)[0])
+    for a, b in zip(got, ref):
+        for k in b:
+            np.testing.assert_array_equal(a[k], np.asarray(b[k]))
+    key = jax.random.PRNGKey(3)
+    with np.load(draws) as z:
+        assert z["pleft"].shape == (3, 16)
+        for it in range(2):
+            key, k1 = jax.random.split(key)
+            want = jax_aug_draws(k1, 16, 480, 640,
+                                 jax_train.YoloTrainConfig())
+            for k, v in want.items():
+                np.testing.assert_array_equal(z[k][it], v.numpy(), err_msg=k)
+    # the KPD loop's: the JAX init, and PRNGKey(2)'s per-iteration splits
+    from betapose_tpu.train import augment as jax_aug
+    from tests.test_torch_augment import jax_draws
+    kref = jax_kpd.init_params(jax.random.PRNGKey(1), n_classes=12,
+                               arch="resnet50")
+    kgot = jax_ckpt.load_pytree_npz(paths["kpd_init"], kref)
+    for a, b in zip(jax.tree_util.tree_leaves(kgot),
+                    jax.tree_util.tree_leaves(kref)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    assert jax_aug.AugmentConfig().scale_min == 0.2   # jax_draws' CFG's
+    key = jax.random.PRNGKey(2)
+    with np.load(paths["kpd_draws"]) as z:
+        assert z["rate"].shape == (2, 8) and z["gauss"].shape == (2, 8, 4)
+        for it in range(2):
+            key, k1 = jax.random.split(key)
+            for j, k in enumerate(jax.random.split(k1, 8)):
+                for name, v in jax_draws(k).items():
+                    np.testing.assert_array_equal(z[name][it, j],
+                                                  np.asarray(v))
+    stamp = os.path.getmtime(draws)
+    assert selftest_seeds.write_swap(str(tmp_path), 2, 1) == paths
+    assert os.path.getmtime(draws) == stamp          # reused, not rewritten
