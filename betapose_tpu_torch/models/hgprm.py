@@ -49,6 +49,8 @@ import torch.nn.functional as F
 
 from betapose_tpu_torch.models.kpd import _BN_NAMES, _numpy_state
 from betapose_tpu_torch.models.precision import Conv2d
+from betapose_tpu_torch.parallel.collectives import (group_size,
+                                                     sync_batch_norm)
 
 BN_EPS = 1e-5
 
@@ -117,11 +119,19 @@ def _conv(cin, cout, k=1, gain=1.0, stride=1, pad=0):
 class BatchNorm2d(nn.BatchNorm2d):
     """`nn.BatchNorm2d` whose train mode normalizes with the batch mean
     and biased variance and leaves the running statistics untouched (the
-    JAX `_bn_train`; torch's momentum=None would average them instead)."""
+    JAX `_bn_train`; torch's momentum=None would average them instead).
+    With `group` set to a data-parallel process group of several ranks
+    (`parallel/layers.set_batch_norm_group`), the mean and variance are
+    those of the global batch, every rank's rows."""
+
+    group = None
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
+        if group_size(self.group) > 1:
+            return sync_batch_norm(x, self.weight, self.bias, self.eps,
+                                   self.group)[0]
         return F.batch_norm(x, None, None, self.weight, self.bias, True,
                             0.0, self.eps)
 

@@ -39,13 +39,46 @@ import torch.nn.functional as F
 
 from betapose_tpu_torch.models import stem_s2d
 from betapose_tpu_torch.models.precision import Conv2d
+from betapose_tpu_torch.parallel.collectives import (group_size,
+                                                     sync_batch_norm)
 
 BN_EPS = 1e-5
 RESNET_LAYERS = {"resnet50": [3, 4, 6, 3], "resnet101": [3, 4, 23, 3]}
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """`nn.BatchNorm2d` (same buffers, same `state_dict` names) that, with
+    `group` set to a data-parallel process group of several ranks
+    (`parallel/layers.set_batch_norm_group`), normalizes in train mode with
+    the mean and biased variance of the global batch and rolls the running
+    statistics from them as `nn.BatchNorm2d` does (momentum 0.1, the
+    unbiased variance of the global count), so every rank holds the same
+    buffers.  Without a group it is `nn.BatchNorm2d`."""
+
+    group = None
+
+    def forward(self, x):
+        if not self.training or group_size(self.group) == 1:
+            return super().forward(x)
+        y, mean, var, n = sync_batch_norm(x, self.weight, self.bias,
+                                          self.eps, self.group)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1 - m).add_(m * mean)
+            self.running_var.mul_(1 - m).add_(m * var * (n / (n - 1)))
+            self.num_batches_tracked += 1
+        return y
+
+
 def _bn(c):
-    return nn.BatchNorm2d(c, eps=BN_EPS)
+    return BatchNorm2d(c, eps=BN_EPS)
+
+
+class Squeeze(nn.Module):
+    """The SE squeeze: the float32 spatial mean [B, C] of NCHW x."""
+
+    def forward(self, x):
+        return x.float().mean(dim=(2, 3))
 
 
 class SELayer(nn.Module):
@@ -54,11 +87,13 @@ class SELayer(nn.Module):
 
     def __init__(self, channel):
         super().__init__()
+        self.squeeze = Squeeze()
         self.fc = nn.Sequential(nn.Linear(channel, channel), nn.ReLU(),
                                 nn.Linear(channel, channel), nn.Sigmoid())
 
     def forward(self, x):
-        s = x.float().mean(dim=(2, 3)).to(self.fc[0].weight.dtype)
+        dtype = next(self.fc.parameters()).dtype
+        s = self.squeeze(x).to(dtype)
         return x * self.fc(s)[:, :, None, None].to(x.dtype)
 
 
@@ -91,6 +126,7 @@ class SEResnet(nn.Module):
         super().__init__()
         self.conv1 = Conv2d(3, 64, 7, 2, 3, bias=False)
         self.bn1 = _bn(64)
+        self.maxpool = nn.MaxPool2d(3, 2, 1)
         inplanes = 64
         for li, (planes, blocks) in enumerate(
                 zip([64, 128, 256, 512], RESNET_LAYERS[arch]), start=1):
@@ -108,8 +144,7 @@ class SEResnet(nn.Module):
             y1 = stem_s2d.fastpose_stem_s2d(self.conv1, x)
         else:
             y1 = self.conv1(x)
-        x = F.relu(self.bn1(y1))
-        x = F.max_pool2d(x, 3, 2, 1)
+        x = self.maxpool(F.relu(self.bn1(y1)))
         return self.layer4(self.layer3(self.layer2(self.layer1(x))))
 
 

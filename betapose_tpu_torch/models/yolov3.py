@@ -46,6 +46,8 @@ import torch.nn.functional as F
 
 from betapose_tpu_torch.models.darknet_cfg import parse_cfg
 from betapose_tpu_torch.models.precision import Conv2d
+from betapose_tpu_torch.parallel.collectives import (group_size,
+                                                     sync_batch_norm)
 
 BN_EPS = 1e-5  # torch BatchNorm2d default, matches reference inference
 BN_ROLLING_MOMENTUM = 0.01  # darknet: rolling = .99*rolling + .01*batch
@@ -209,7 +211,14 @@ class BatchNorm2d(nn.BatchNorm2d):
     the batch mean and the biased batch variance over (N, H, W), and roll
     the running statistics as 0.99 * old + 0.01 * batch, the variance
     biased too.  (`nn.BatchNorm2d` rolls with momentum 0.1 and the
-    unbiased variance.)  Eval mode is `nn.BatchNorm2d`'s."""
+    unbiased variance.)  Eval mode is `nn.BatchNorm2d`'s.
+
+    With `group` set to a data-parallel process group of several ranks
+    (`parallel/layers.set_batch_norm_group`), the statistics are those of
+    the global batch, every rank's rows, as GSPMD computes them in the
+    JAX step, and every rank rolls the same running statistics."""
+
+    group = None
 
     def __init__(self, c):
         super().__init__(c, eps=BN_EPS, momentum=BN_ROLLING_MOMENTUM)
@@ -217,6 +226,15 @@ class BatchNorm2d(nn.BatchNorm2d):
     def forward(self, x):
         if not self.training:
             return super().forward(x)
+        if group_size(self.group) > 1:
+            y, mean, var, _ = sync_batch_norm(x, self.weight, self.bias,
+                                              self.eps, self.group)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_((1 - m) * self.running_mean
+                                        + m * mean)
+                self.running_var.copy_((1 - m) * self.running_var + m * var)
+            return y
         with torch.no_grad():
             var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
             m = self.momentum
@@ -257,21 +275,26 @@ class ConvLayer(nn.Module):
             folded.bias.copy_(bn.bias - bn.running_mean * scale)
         self.conv, self.bn = folded, None
 
-    def forward(self, x):
+    def forward(self, x, padding=None):
+        """`padding`, when given, replaces the conv's (a spatially split
+        map brings its own halo rows, `parallel/spatial.py`)."""
         if x.dtype == torch.bfloat16:
-            return self._forward_bf16(x)
-        y = self.conv(x)
+            return self._forward_bf16(x, padding)
+        conv = self.conv
+        y = (conv(x) if padding is None else
+             F.conv2d(x, conv.weight, conv.bias, conv.stride, padding))
         if self.bn is not None:
             y = self.bn(y)
         if self.activation == "leaky":
             y = F.leaky_relu(y, LEAKY_SLOPE)
         return y
 
-    def _forward_bf16(self, x):
+    def _forward_bf16(self, x, padding=None):
         conv = self.conv
         w32 = cached(self, "_w_bf16", (conv.weight,),
                      lambda: bf16_values(conv.weight))
-        return conv_bf16(x, w32, conv.bias, conv.stride, conv.padding,
+        return conv_bf16(x, w32, conv.bias, conv.stride,
+                         conv.padding if padding is None else padding,
                          self.activation, self.bn)
 
 
@@ -299,6 +322,19 @@ def decode_head(x_nhwc, anchors, num_classes, reso):
     return out.reshape(b, na * gs * gs, attrs)
 
 
+class Head(nn.Identity):
+    """A [yolo] layer's module: the identity on the head's raw NCHW map
+    (a spatial split gathers the map whole here, `parallel/spatial.py`)."""
+
+
+def _layer_module(l: LayerSpec) -> nn.Module:
+    if l.kind == "conv":
+        return ConvLayer(l)
+    if l.kind == "upsample":
+        return nn.Upsample(scale_factor=l.stride, mode="nearest")
+    return Head() if l.kind == "yolo" else nn.Identity()
+
+
 class Darknet(nn.Module):
     """The network of a `NetworkSpec`; the reference's `Darknet(cfg, reso)`
     (`yolo/darknet.py:319-363`).  `forward(x)` takes NHWC [B, reso, reso,
@@ -309,9 +345,7 @@ class Darknet(nn.Module):
         super().__init__()
         self.spec = spec
         self.reso = int(reso)
-        self.layers = nn.ModuleList(
-            ConvLayer(l) if l.kind == "conv" else nn.Identity()
-            for l in spec.layers)
+        self.layers = nn.ModuleList(_layer_module(l) for l in spec.layers)
         init_params(self, generator)
         self.eval()  # built as served; the trainer calls .train()
 
@@ -336,9 +370,9 @@ class Darknet(nn.Module):
                 x = (cache[l.route_idxs[0]] if len(l.route_idxs) == 1 else
                      torch.cat([cache[a] for a in l.route_idxs], dim=1))
             elif l.kind == "upsample":
-                x = F.interpolate(x, scale_factor=l.stride, mode="nearest")
+                x = mod(x)
             elif l.kind == "yolo":
-                head = x.permute(0, 2, 3, 1)
+                head = mod(x).permute(0, 2, 3, 1)
                 decoded.append(decode_head(head, l.anchors, l.num_classes,
                                            self.reso) if decode else head)
                 x = cache[i - 1]

@@ -18,8 +18,9 @@ names/backup.  .cfg files are stock darknet network descriptions;
 .weights files are byte-compatible with darknet's and the JAX package's
 (`models/yolov3.py`).  The detection verbs run the folded network in its
 bf16 layer (`models/yolov3.conv_bf16`: float32 sums, one rounding), on
-the card and on the CPU alike.  `-gpus` other than one device raises
-(data parallelism is ROADMAP slice 6).  The JAX CLI's other verbs raise:
+the card and on the CPU alike.  `detector train ... -gpus 0,1,...`
+trains data-parallel on as many ranks (`train/train_yolo_main`; CPU
+processes with `-device cpu`).  The JAX CLI's other verbs raise:
 they are not ported yet (`partial`: slice 5; the weight-surgery and
 inspection verbs, `classifier`, `rnn` and `nightmare`: slice 7).
 """

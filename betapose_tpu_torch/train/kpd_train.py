@@ -30,6 +30,7 @@ import torch.nn as nn
 
 from betapose_tpu_torch.models.hgprm import PyraNet
 from betapose_tpu_torch.models.precision import conv_precision
+from betapose_tpu_torch.parallel import collectives as coll
 
 BN_MOMENTUM = 0.1  # torch BatchNorm2d default
 DEFAULT_TRAIN_PRECISION = "bfloat16"
@@ -106,29 +107,138 @@ class Optimizer(torch.optim.Optimizer):
                     u = -lr * g
                 p.add_(u)
 
-    def named_state(self, names):
-        """{"<slot>/<parameter name>": array} of the state, for
-        `optimizer.npz`; `names` maps each parameter to its name."""
+    def _slots(self):
+        """The state slots of each parameter, in the port's layout."""
+        g = self.param_groups[0]
+        method, m = g["method"], g["momentum"]
+        slots = {"rmsprop": ["nu"], "adam": ["mu", "nu"], "sgd": []}[method]
+        return ["count"] + slots + (["trace"] if m and method != "adam"
+                                    else [])
+
+    def jax_named_state(self, model: nn.Module, to_tree):
+        """The state in the JAX trainer's `optimizer.npz` layout, {optax
+        key path: array}, which its `load_pytree_npz` reads back for
+        --Continue.  `to_tree` maps a `state_dict` of `model` to the JAX
+        param tree (`kpd.params_from_state_dict`, or hgPRM's)."""
+        g = self.param_groups[0]
+        paths = jax_state_paths(g["method"], g["weight_decay"])
+        sd = model.state_dict()
         out = {}
-        for p, st in self.state.items():
-            for slot, v in st.items():
-                out[f"{slot}/{names[p]}"] = (
-                    v.detach().cpu().numpy() if torch.is_tensor(v) else v)
+        for slot, path in paths.items():
+            if slot == "count":
+                counts = [st["count"] for st in self.state.values()]
+                out[path] = np.asarray(max(counts, default=0), np.int32)
+                continue
+            slot_sd = {k: torch.zeros_like(v) for k, v in sd.items()}
+            for name, p in model.named_parameters():
+                if slot in self.state.get(p, {}):
+                    slot_sd[name] = self.state[p][slot]
+            for key, leaf in trainable_leaves(to_tree(slot_sd)):
+                out[path + key] = np.asarray(leaf, np.float32)
         return out
 
-    def load_named_state(self, arrays, named_params):
-        """Restore what `named_state` saved, onto `named_params`."""
-        for name, p in named_params:
-            st = {}
-            for slot in ("count", "nu", "mu", "trace"):
-                key = f"{slot}/{name}"
-                if key in arrays:
-                    v = arrays[key]
-                    st[slot] = (int(v) if slot == "count" else
-                                torch.as_tensor(v, dtype=p.dtype,
-                                                device=p.device).clone())
-            if st:
+    def load_named_state(self, arrays, model: nn.Module, to_tree=None,
+                         from_tree=None):
+        """Restore the state of `model`'s parameters from an
+        `optimizer.npz`: the JAX trainer's layout (optax key paths; needs
+        `to_tree` and its inverse `from_tree`, `kpd.state_dict_from_jax`
+        or hgPRM's) or the port's own ("<slot>/<parameter name>").  A
+        missing slot or an unknown key raises, as the JAX loader does."""
+        files = set(arrays.keys())
+        named = list(model.named_parameters())
+        g = self.param_groups[0]
+        if any(k.startswith(".") for k in files):
+            paths = jax_state_paths(g["method"], g["weight_decay"])
+            like = to_tree(model.state_dict())
+            expect = {p + k for slot, p in paths.items() if slot != "count"
+                      for k, _ in trainable_leaves(like)}
+            if "count" in paths:
+                expect.add(paths["count"])
+            _check_keys(files, expect)
+            count = int(arrays[paths["count"]]) if "count" in paths else 0
+            slots = {}
+            for slot, path in paths.items():
+                if slot == "count":
+                    continue
+                sd = from_tree(map_trainable_leaves(
+                    like, lambda key, leaf, pre=path: arrays[pre + key]))
+                slots[slot] = sd
+            for name, p in named:
+                st = {"count": count}
+                for slot in self._slots()[1:]:
+                    st[slot] = torch.as_tensor(
+                        np.asarray(slots[slot][name]), dtype=p.dtype,
+                        device=p.device).clone()
                 self.state[p] = st
+            return
+        expect = {f"{slot}/{name}" for name, _ in named
+                  for slot in self._slots()}
+        _check_keys(files, expect)
+        for name, p in named:
+            st = {}
+            for slot in self._slots():
+                v = arrays[f"{slot}/{name}"]
+                st[slot] = (int(v) if slot == "count" else
+                            torch.as_tensor(v, dtype=p.dtype,
+                                            device=p.device).clone())
+            self.state[p] = st
+
+
+def _check_keys(files, expect):
+    missing = sorted(expect - files)
+    if missing:
+        raise KeyError(f"optimizer state missing {missing[0]} "
+                       f"({len(missing)} keys)")
+    unknown = sorted(files - expect)
+    if unknown:
+        raise KeyError(f"optimizer state has unknown key {unknown[0]} "
+                       f"({len(unknown)} keys)")
+
+
+def jax_state_paths(method: str, weight_decay: float) -> dict:
+    """{port slot: optax key path} of the state of the JAX
+    `make_optimizer(method, ..., weight_decay, params_example)`:
+    `masked(chain(add_decayed_weights, tx))` or `masked(tx)`.  rmsprop and
+    sgd carry a momentum trace even at momentum 0 (decay 0: it holds the
+    last update, which nothing reads); adam one step count."""
+    inner = ".inner_state" + ("[1]" if weight_decay else "")
+    return {"rmsprop": {"nu": f"{inner}[0].nu", "trace": f"{inner}[2].trace"},
+            "adam": {"count": f"{inner}[0].count", "mu": f"{inner}[0].mu",
+                     "nu": f"{inner}[0].nu"},
+            "sgd": {"trace": f"{inner}[0].trace"}}[method]
+
+
+def _tree_items(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _tree_items(v, f"{prefix}['{k}']")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _tree_items(v, f"{prefix}[{i}]")
+    else:
+        yield prefix, tree
+
+
+def _is_bn_stat(key: str) -> bool:
+    return key.endswith("['mean']") or key.endswith("['var']")
+
+
+def trainable_leaves(tree):
+    """(JAX key path, leaf) of a JAX param tree's trainable leaves, as
+    `jax.tree_util.keystr` writes the paths; batch-norm running statistics
+    are left out, as the JAX optimizer masks them."""
+    return [(k, v) for k, v in _tree_items(tree) if not _is_bn_stat(k)]
+
+
+def map_trainable_leaves(tree, fn, prefix=""):
+    """`tree` with each trainable leaf replaced by fn(key path, leaf)."""
+    if isinstance(tree, dict):
+        return {k: map_trainable_leaves(v, fn, f"{prefix}['{k}']")
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_trainable_leaves(v, fn, f"{prefix}[{i}]")
+                          for i, v in enumerate(tree))
+    return tree if _is_bn_stat(prefix) else fn(prefix, tree)
 
 
 def make_optimizer(params, method: str = "rmsprop", lr: float = 2.5e-4,
@@ -215,22 +325,45 @@ def forward_heads(model: nn.Module, inps):
 
 
 def make_train_step(model: nn.Module, optimizer, out_res_h: int = 80,
-                    precision: str = DEFAULT_TRAIN_PRECISION, sym_perms=None):
+                    precision: str = DEFAULT_TRAIN_PRECISION, sym_perms=None,
+                    group=None):
     """train_step(batch) -> {"loss", "acc"} (device scalars, no host sync):
     one forward (all heads) and backward in train mode with the convs in
     `precision`, then one optimizer update.  batch: the dict of
-    `train/augment.augment_batch`."""
+    `train/augment.augment_batch`.
+
+    Data parallelism: with `group` (the mesh's `data` axis), batch is this
+    rank's rows of the global batch.  The loss is a mean over the batch
+    (the symmetry-aware one a mean of per-sample minima), so the gradients
+    are all-reduced as a mean over the group, and the step is the
+    single-device step on the global batch, as the JAX step under GSPMD
+    is.  The logged loss is the group's mean, and `acc` the global PCK:
+    the correct and valid counts are summed before the division.  (The
+    batch norms take the global statistics when pointed at the group,
+    `parallel/layers.set_batch_norm_group`.)"""
     loss_fn = make_loss_fn(out_res_h, sym_perms)
+    params = list(model.parameters())
 
     def train_step(batch):
         model.train()
         optimizer.zero_grad(set_to_none=True)
         with conv_precision(model, precision):
             out = forward_heads(model, batch["inps"])
-            loss, acc, _ = loss_fn(out, batch["labels"], batch["set_mask"])
+            loss, acc, n_valid = loss_fn(out, batch["labels"],
+                                         batch["set_mask"])
             loss.backward()
+        coll.all_reduce_grads(params, group, "mean")
         optimizer.step()
-        return {"loss": loss.detach(), "acc": acc}
+        loss = loss.detach()
+        if group is not None:
+            with torch.no_grad():
+                n_valid = n_valid.float()
+                stats = coll.all_reduce_sum(torch.stack(
+                    [loss, torch.round(acc * n_valid.clamp_min(1)),
+                     n_valid]), group)
+            loss = stats[0] / coll.group_size(group)
+            acc = stats[1] / stats[2].clamp_min(1)
+        return {"loss": loss, "acc": acc}
 
     return train_step
 

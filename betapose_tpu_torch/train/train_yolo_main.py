@@ -19,8 +19,16 @@ resets the running average).
   iterations when the cfg's [net] sets random.
 - Frames are decoded on 8 threads (cv2), cross to the card as uint8 and
   are divided by 255 there.
-- `device=None` means CUDA (`core/device.resolve_device`).  `n_devices`
-  other than 1 raises: data parallelism is ROADMAP slice 6.
+- `device=None` means CUDA (`core/device.resolve_device`).
+- `n_devices=N` (darknet's `-gpus 0,1,...`) trains data-parallel on N
+  ranks (`parallel/launch`; N CPU processes under gloo with
+  `device="cpu"`).  The batch stays the cfg's global one, as in the JAX
+  trainer: every rank draws the same resolution and image indices from
+  the host rng, decodes only its rows, draws the global batch's
+  augmentation and keeps its rows; the gradients are summed
+  (`yolo_train.make_train_step`) and the batch norms take the global
+  statistics.  `seen` and the LR schedule count global images; rank 0
+  alone prints and writes the `.weights` snapshots.
 """
 
 from __future__ import annotations
@@ -31,10 +39,14 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from betapose_tpu_torch.core.device import resolve_device
 from betapose_tpu_torch.data.loader import imread_rgb
 from betapose_tpu_torch.models import yolov3 as yolo_mod
+from betapose_tpu_torch.parallel import launch
+from betapose_tpu_torch.parallel import mesh as mesh_mod
+from betapose_tpu_torch.parallel.layers import set_batch_norm_group
 from betapose_tpu_torch.train import yolo_train
 
 
@@ -75,17 +87,30 @@ def train_from_data_cfg(data_path, cfg_path, weights_path=None,
                         clear=False, n_devices=None, batch=None,
                         snapshot_every=100, log_every=1,
                         resize_buckets=3, max_batches=None,
-                        precision=None, device=None, timer=None):
+                        precision=None, device=None, timer=None, mesh=None):
     """Train the cfg's network on the .data file's train list; returns the
     trained `Darknet`.  `timer`, when given, is called with "start",
     "loaded", "augmented" and "stepped" at those points of each
-    iteration (the frames on the card, the augmented batch, the update)."""
+    iteration (the frames on the card, the augmented batch, the update).
+    n_devices > 1 runs that many ranks, each calling this with its
+    `mesh`."""
     from betapose_tpu_torch.tools.darknet_cli import read_data_cfg
 
-    if n_devices not in (None, 1):
-        raise NotImplementedError(
-            f"n_devices={n_devices}: the port trains on one device; data "
-            "parallelism is ROADMAP slice 6")
+    kw = dict(weights_path=weights_path, clear=clear, batch=batch,
+              snapshot_every=snapshot_every, log_every=log_every,
+              resize_buckets=resize_buckets, max_batches=max_batches,
+              precision=precision, device=device)
+    if (n_devices or 1) > 1 and mesh is None:
+        state = launch.run_ranks(_train_rank, n_devices, device, data_path,
+                                 cfg_path, n_devices, kw)
+        with open(cfg_path) as f:
+            spec = yolo_mod.build_spec(f.read())
+        model = yolo_mod.Darknet(spec, int(spec.net_info.get("width", 416)))
+        model.load_state_dict({k: torch.from_numpy(v)
+                               for k, v in state.items()})
+        return model.eval()
+    group = mesh_mod.axis_group(mesh, "data") if mesh is not None else None
+    lead = mesh is None or dist.get_rank() == 0
     dev = resolve_device(device)
     opts = read_data_cfg(data_path)
     backup = opts.get("backup", "backup")
@@ -115,6 +140,12 @@ def train_from_data_cfg(data_path, cfg_path, weights_path=None,
                                  torch.Generator().manual_seed(0))
     model = model.to(dev)
 
+    if mesh is not None:
+        if global_batch % mesh_mod.axis_size(mesh, "data"):
+            raise ValueError(f"batch {global_batch} does not split over "
+                             f"{n_devices} devices")
+        mesh_mod.replicate(mesh, model)
+        set_batch_norm_group(model, group)
     optimizer = yolo_train.make_optimizer(model, tcfg)
     yolo_train.fast_forward_opt_state(optimizer, seen // global_batch)
 
@@ -122,13 +153,15 @@ def train_from_data_cfg(data_path, cfg_path, weights_path=None,
         if int(net.get("random", 0)) else [base_reso]
     precision = precision or yolo_train.DEFAULT_TRAIN_PRECISION
     steps_by_reso = {
-        r: yolo_train.make_train_step(model, optimizer, r, r, precision)
+        r: yolo_train.make_train_step(model, optimizer, r, r, precision,
+                                      group)
         for r in buckets}
-    print(f"resolution buckets: {buckets}")
+    say = print if lead else (lambda *a, **k: None)
+    say(f"resolution buckets: {buckets}")
 
     paths, truths = yolo_train.load_darknet_labels(
         opts["train"], max_boxes=tcfg.max_boxes)
-    print(f"{len(paths)} training images")
+    say(f"{len(paths)} training images")
 
     rng = np.random.default_rng(0)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -146,13 +179,20 @@ def train_from_data_cfg(data_path, cfg_path, weights_path=None,
                 cur_reso = buckets[rng.integers(len(buckets))]
             idxs = rng.integers(0, len(paths), global_batch)
             mark("start")
+            if mesh is not None:   # this rank's rows
+                idxs = mesh_mod.shard_batch(mesh, idxs)
             imgs = torch.from_numpy(np.stack(list(pool.map(
                 lambda i: imread_rgb(paths[i]), idxs)))).to(dev)
             truths_dev = torch.from_numpy(truths[idxs]).to(dev)
             mark("loaded")
+            # the global batch's draws, this rank's rows of them
+            draws = yolo_train.draw_random(global_batch, imgs.shape[1],
+                                           imgs.shape[2], tcfg, gen)
+            if mesh is not None:
+                draws = mesh_mod.shard_batch(mesh, draws)
             aug_imgs, aug_truths = yolo_train.augment_detection_batch(
                 imgs.float() / 255.0, truths_dev, tcfg, cur_reso, cur_reso,
-                generator=gen)
+                draws=draws)
             mark("augmented")
             t0 = time.time()
             m = steps_by_reso[cur_reso](aug_imgs, aug_truths)
@@ -161,23 +201,39 @@ def train_from_data_cfg(data_path, cfg_path, weights_path=None,
             if not np.isfinite(loss):
                 # darknet NaN guard (detector.c:197): reset the average
                 avg_loss = -1.0
-                print(f"{it}: loss is NaN — skipping average update")
+                say(f"{it}: loss is NaN — skipping average update")
             else:
                 avg_loss = (loss if avg_loss < 0
                             else avg_loss * 0.9 + loss * 0.1)
             if it % log_every == 0:
-                print(f"{it}: {loss:.6f}, {avg_loss:.6f} avg, "
-                      f"reso {cur_reso}, {time.time() - t0:.3f} s")
+                say(f"{it}: {loss:.6f}, {avg_loss:.6f} avg, "
+                    f"reso {cur_reso}, {time.time() - t0:.3f} s")
             if snapshot_every and it > 0 and it % snapshot_every == 0:
                 out = os.path.join(backup, f"{base_name}_{it}.weights")
-                yolo_mod.save_darknet_weights(
-                    model, out, seen=(it + 1) * global_batch)
-                print(f"Saving weights to {out}")
+                _save(model, out, (it + 1) * global_batch, mesh, lead)
+                say(f"Saving weights to {out}")
     out = os.path.join(backup, f"{base_name}_final.weights")
-    yolo_mod.save_darknet_weights(model, out,
-                                  seen=tcfg.max_batches * global_batch)
-    print(f"Saving weights to {out}")
+    _save(model, out, tcfg.max_batches * global_batch, mesh, lead)
+    say(f"Saving weights to {out}")
     return model.eval()
+
+
+def _save(model, path, seen, mesh, lead):
+    """Rank 0 writes the snapshot, once every rank has finished the
+    step."""
+    if mesh is not None:
+        dist.barrier()
+    if lead:
+        yolo_mod.save_darknet_weights(model, path, seen=seen)
+
+
+def _train_rank(data_path, cfg_path, n_devices, kw):
+    """One rank of n_devices > 1: rank 0 returns the trained network's
+    state_dict as numpy arrays."""
+    model = train_from_data_cfg(data_path, cfg_path, n_devices=n_devices,
+                                mesh=mesh_mod.make_mesh(n_devices), **kw)
+    return {k: v.detach().cpu().numpy()
+            for k, v in model.state_dict().items()}
 
 
 if __name__ == "__main__":

@@ -34,6 +34,7 @@ import torch
 
 from betapose_tpu_torch.models import yolov3 as yolo_mod
 from betapose_tpu_torch.models.precision import conv_precision
+from betapose_tpu_torch.parallel import collectives as coll
 from betapose_tpu_torch.train.kpd_train import (DEFAULT_TRAIN_PRECISION,
                                                 Optimizer)
 from betapose_tpu_torch.train.yolo_loss import yolo_loss
@@ -267,26 +268,62 @@ def augment_detection_batch(imgs, truths, cfg: YoloTrainConfig, out_h: int,
 # ---------------------------------------------------------------------------
 
 def make_train_step(model: yolo_mod.Darknet, optimizer, net_w: int,
-                    net_h: int, precision: str = DEFAULT_TRAIN_PRECISION):
+                    net_h: int, precision: str = DEFAULT_TRAIN_PRECISION,
+                    group=None):
     """train_step(images, truths) -> metrics (device scalars, no host
     sync): "loss" and "head<k>/<name>".  One forward and backward in train
     mode with the convs in `precision` ("bfloat16", the JAX default:
     bf16 operands, float32 sums; "tensorfloat32"; "float32"), then one
     optimizer update.  The batch norms roll their running statistics in
     the forward; the optimizer neither reads nor writes them, so this is
-    the JAX order's result (the update, then `apply_bn_updates`)."""
+    the JAX order's result (the update, then `apply_bn_updates`).
+
+    Data parallelism: with `group` (the mesh's `data` axis), images and
+    truths are this rank's rows of the global batch.  The JAX loss is the
+    heads' sum over the batch divided by the global batch, so each rank's
+    loss is its rows' sum over the global batch and the gradients are
+    all-reduced as a sum (a mean would be 1/n of the JAX update).  The
+    logged loss and the head metrics are summed over the group, avg_iou
+    weighted by the counts, before JAX's normalisation."""
+    params = list(model.parameters())
+    n = coll.group_size(group)
+
     def train_step(images, truths):
         model.train()
         optimizer.zero_grad(set_to_none=True)
         with conv_precision(model, precision):
             loss, metrics = yolo_loss(model, images, truths, net_w, net_h)
+            if group is not None:
+                loss = loss / n    # this rank's rows over the global batch
             loss.backward()
+        coll.all_reduce_grads(params, group, "sum")
         optimizer.step()
         metrics = dict(metrics)
         metrics["loss"] = loss.detach()
+        if group is not None:
+            metrics = _sum_metrics(metrics, group)
         return metrics
 
     return train_step
+
+
+@torch.no_grad()
+def _sum_metrics(metrics, group):
+    """The global batch's metrics: sums summed; avg_iou, a mean over the
+    head's count, weighted by the counts."""
+    keys = sorted(metrics)
+    vals = []
+    for k in keys:
+        v = metrics[k]
+        if k.endswith("/avg_iou"):
+            v = v * metrics[k[:-len("avg_iou")] + "count"].clamp_min(1.0)
+        vals.append(v.float())
+    tot = dict(zip(keys, coll.all_reduce_sum(torch.stack(vals), group)))
+    for k in keys:
+        if k.endswith("/avg_iou"):
+            tot[k] = tot[k] / tot[k[:-len("avg_iou")] + "count"].clamp_min(
+                1.0)
+    return tot
 
 
 def load_darknet_labels(list_file, max_boxes: int = 10):

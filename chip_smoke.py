@@ -39,6 +39,19 @@ result line):
    step), the capacity-1 step's keys and shapes, frames/s, peak memory,
    dt/pt/pn, and the kernel bitwise equal to its plain version on the
    step's own [8,50,80,64] heatmaps.
+5b. Parallelism (`betapose_tpu_torch/parallel/`) at world size 1 on NCCL
+   (`launch.single_rank`): `ShardedPosePipeline` on phase 3's networks and
+   frames, capacity 1 and multi-candidate (the occlusion recipe, device
+   pose-NMS), each against `PosePipeline` (boxes within 1e-3 px,
+   det_valid equal, heatmaps within 1e-4 relative; bitwise equality
+   printed), the decode kernel launched once per sharded step and bitwise
+   equal to its plain version on the sharded step's heatmaps, frames/s of
+   both pipelines timed in turns; the data-parallel train steps against
+   the single-process ones from the same seed and batch (FastPose
+   SE-ResNet101 at batch 40 for 3 steps, YOLOv3-416 at batch 64 for 2:
+   loss within 1e-5 relative at step 1 and 1e-3 after, parameters and
+   buffers within 1e-3; ms per step of both); then
+   `entry.dryrun_multichip(4)` on 4 gloo CPU ranks, its line printed.
 6. Small-input reference checks: the float32 pipeline on the card against
    the same pipeline on the CPU, for capacity 1 and for the multi-candidate
    path in both modes (boxes, det_valid, then the CPU's heatmaps through
@@ -595,6 +608,173 @@ def phase_multi_path(torch, np, kernels, pipe, frames, card, profile_out):
     check(tuple(hm.shape) == (batch * cap, 50, 80, 64),
           f"multi path heatmaps {hm.shape}")
     hold_decode(torch, hm, rec, "multi", card)
+
+
+def phase_sharded_path(torch, np, kernels, pipe, frames, card):
+    """`parallel/inference.ShardedPosePipeline` on a world-1 NCCL group
+    (`launch.single_rank`) on the main path's networks and frames, capacity
+    1 and the multi-candidate path with device pose-NMS: each against
+    `PosePipeline` on the same frames (boxes within 1e-3 px, det_valid
+    equal, heatmaps within 1e-4 relative; bitwise equality printed), the
+    decode kernel's launches on the sharded step (once per step) and the
+    kernel bitwise against its plain version on the step's heatmaps, and
+    both pipelines' frames/s, timed in turns."""
+    import dataclasses
+    from betapose_tpu_torch.eval.pipeline import PosePipeline
+    from betapose_tpu_torch.ops.kernels import heatmap_decode as hd
+    from betapose_tpu_torch.parallel import launch
+    from betapose_tpu_torch.parallel.inference import ShardedPosePipeline
+
+    batch, steps = len(frames), 6
+    kp3d = pipe.kp3d.cpu().numpy()
+    rec = kernels["decode_peaks"]
+    with launch.single_rank("cuda"):
+        for path, extra in (("sharded_capacity_1", {}),
+                            ("sharded_multi", OCCLUSION_RECIPE)):
+            cfg = dataclasses.replace(pipe.cfg, **extra)
+            ref = PosePipeline(pipe.yolo, pipe.kpd, kp3d, np.asarray(CAM_K),
+                               cfg, device="cuda")
+            spipe = ShardedPosePipeline(pipe.yolo, pipe.kpd, kp3d,
+                                        np.asarray(CAM_K), cfg,
+                                        device="cuda")
+            out, want = spipe(frames), ref(frames)          # warm-up
+            torch.cuda.synchronize()
+            walls = {"sharded": 0.0, "single": 0.0}
+            launches = 0
+            for _ in range(2):                 # in turns: single, sharded
+                for name, run in (("single", ref), ("sharded", spipe)):
+                    hd.decode_peaks.launches = 0
+                    t0 = time.perf_counter()
+                    for _ in range(steps // 2):
+                        out_n = run(frames)
+                    torch.cuda.synchronize()
+                    walls[name] += time.perf_counter() - t0
+                    if name == "sharded":
+                        launches += hd.decode_peaks.launches
+                        out = out_n
+            rec["launches_per_path"][path] = launches
+            check(launches == steps, f"decode_peaks launched {launches} "
+                  f"times in {steps} steps of the {path} path")
+            check_step_outputs(torch, out, batch, path)
+            check(torch.equal(out["det_valid"], want["det_valid"]),
+                  f"{path}: det_valid differs from PosePipeline's")
+            box = (out["boxes"] - want["boxes"]).abs().max().item()
+            check(box <= 1e-3, f"{path}: boxes differ by {box:.3g} px")
+            with torch.inference_mode():
+                fr = ref.to_device(frames)
+                hm = spipe.pose_stage(spipe.kpd, spipe.det_stage(
+                    spipe.yolo, fr)["crops"])
+                hm_ref = ref.pose_stage(ref.kpd, ref.det_stage(
+                    ref.yolo, fr)["crops"])
+            hdiff = ((hm - hm_ref).abs().max()
+                     / hm_ref.abs().max()).item()
+            check(hdiff <= 1e-4, f"{path}: heatmaps differ by {hdiff:.3g} "
+                  "of their largest")
+            same = all(torch.equal(out[k], want[k]) for k in out)
+            print(f"{path} (ShardedPosePipeline, world 1, NCCL) against "
+                  f"PosePipeline: boxes within {box:.3g} px, det_valid "
+                  f"equal, heatmaps within {hdiff:.3g} of their largest; "
+                  f"outputs bitwise equal: {same}, heatmaps bitwise equal: "
+                  f"{torch.equal(hm, hm_ref)}; decode_peaks launched "
+                  f"{launches} times in {steps} steps; frames/s sharded "
+                  f"{batch * steps / walls['sharded']:.1f}, PosePipeline "
+                  f"{batch * steps / walls['single']:.1f} [{card}]")
+            hold_decode(torch, hm, rec, path, card)
+            del spipe, ref
+    torch.cuda.empty_cache()
+
+
+def phase_dp_train(torch, np, card):
+    """The data-parallel train steps on a world-1 NCCL group against the
+    single-process steps from the same seed and batch: FastPose
+    SE-ResNet101 at the KPD phase's batch (40, rmsprop, bf16 convs, 3
+    steps) and YOLOv3-416 at batch 64 (SGD, bf16 convs, 2 steps).  Bars:
+    loss within 1e-5 relative at step 1 and 1e-3 after, parameters and
+    buffers within 1e-3 (tests/test_train.py)."""
+    from betapose_tpu_torch.entry import dryrun_kpd_batch
+    from betapose_tpu_torch.models import kpd as kpd_mod
+    from betapose_tpu_torch.models import yolov3 as yolo_mod
+    from betapose_tpu_torch.models.darknet_cfg import make_yolov3_cfg
+    from betapose_tpu_torch.parallel import launch
+    from betapose_tpu_torch.parallel import mesh as mesh_mod
+    from betapose_tpu_torch.parallel.layers import set_batch_norm_group
+    from betapose_tpu_torch.train import kpd_train, yolo_train
+
+    rng = np.random.default_rng(11)
+    kb = {k: v.cuda() for k, v in
+          dryrun_kpd_batch(rng, 40, 320, 256, 50).items()}
+    imgs = torch.from_numpy(rng.random((64, 416, 416, 3), np.float32)).cuda()
+    truths = torch.zeros((64, 10, 5), device="cuda")
+    truths[:, :2, :2] = torch.from_numpy(rng.uniform(0.2, 0.8, (64, 2, 2)))
+    truths[:, :2, 2:4] = torch.from_numpy(rng.uniform(0.1, 0.4, (64, 2, 2)))
+
+    def kpd_run(group):
+        model = kpd_mod.FastPose(50, "resnet101",
+                                 torch.Generator().manual_seed(0)).cuda()
+        set_batch_norm_group(model, group)
+        opt = kpd_train.make_optimizer(model.parameters(), "rmsprop")
+        step = kpd_train.make_train_step(model, opt, 80, "bfloat16",
+                                         group=group)
+        return model, [lambda: step(kb)] * 3
+
+    def yolo_run(group):
+        spec = yolo_mod.build_spec(make_yolov3_cfg(1, 416, 416))
+        model = yolo_mod.Darknet(spec, 416,
+                                 torch.Generator().manual_seed(0)).cuda()
+        set_batch_norm_group(model, group)
+        opt = yolo_train.make_optimizer(model, yolo_train.YoloTrainConfig(
+            burn_in=0))
+        step = yolo_train.make_train_step(model, opt, 416, 416, "bfloat16",
+                                          group)
+        return model, [lambda: step(imgs, truths)] * 2
+
+    for name, make in (("FastPose SE-ResNet101 batch 40", kpd_run),
+                       ("YOLOv3-416 batch 64", yolo_run)):
+        res = {}
+        for mode in ("single", "dp"):
+            if mode == "dp":
+                ctx = launch.single_rank("cuda")
+            else:
+                ctx = contextlib.nullcontext()
+            with ctx:
+                group = (mesh_mod.axis_group(mesh_mod.make_mesh(1), "data")
+                         if mode == "dp" else None)
+                model, steps = make(group)
+                losses, times = [], []
+                for s in steps:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    losses.append(float(s()["loss"]))
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t0) * 1e3)
+                res[mode] = (losses, times, {k: v.detach().float().cpu()
+                                             for k, v in
+                                             model.state_dict().items()})
+                del model, steps
+                torch.cuda.empty_cache()
+        (l1, t1, s1), (l2, t2, s2) = res["single"], res["dp"]
+        check(np.isfinite(l1).all(), f"{name}: losses {l1}")
+        check(abs(l2[0] - l1[0]) <= 1e-5 * abs(l1[0]),
+              f"{name}: DP step-1 loss {l2[0]} against {l1[0]}")
+        check(all(abs(a - b) <= 1e-3 * abs(b) for a, b in zip(l2[1:], l1[1:])),
+              f"{name}: DP losses {l2} against {l1}")
+        worst = max((s2[k] - s1[k]).abs().max().item() for k in s1)
+        check(worst <= 1e-3, f"{name}: DP parameters differ by {worst:.3g}")
+        print(f"dp train {name} (world 1, NCCL) against one process: losses "
+              f"{l2} vs {l1}, parameters and buffers within {worst:.3g} "
+              f"(bitwise equal: {worst == 0.0}); ms per step after the "
+              f"first: DP {np.median(t2[1:]):.2f}, one process "
+              f"{np.median(t1[1:]):.2f} [{card}]")
+
+
+def phase_dryrun(card):
+    """`entry.dryrun_multichip(4)`: 4 gloo CPU ranks on the card's host."""
+    from betapose_tpu_torch.entry import dryrun_multichip
+    t0 = time.perf_counter()
+    line = dryrun_multichip(4)
+    check(line.endswith(" ok"), f"dryrun: {line}")
+    print(f"dryrun_multichip(4) on 4 gloo CPU ranks in "
+          f"{time.perf_counter() - t0:.1f} s [{card}]")
 
 
 def phase_hgprm_path(torch, np, kernels, pipe, frames, card, profile_out):
@@ -2418,6 +2598,9 @@ def main():
                      args.profile_out)
     phase_hgprm_path(torch, np, kernels, pipe, frames, card,
                      args.profile_out)
+    phase_sharded_path(torch, np, kernels, pipe, frames, card)
+    phase_dp_train(torch, np, card)
+    phase_dryrun(card)
     phase_reference(torch, np)
     phase_hgprm_reference(torch, np)
     phase_kpd_train(torch, np, kernels, card, args.profile_out)

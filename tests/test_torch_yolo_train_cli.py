@@ -11,8 +11,10 @@ tests/test_darknet_cli.py (six 64x64 frames, one bright square each):
 - the port's `net_final.weights` loads in the JAX `load_darknet_weights`,
   and the JAX forward gives the port's eval heads within 1e-5 relative;
   a JAX `net_final.weights` resumes in the port at its `seen`;
-- the CLI parses darknet's flags, `-gpus` with two devices and the other
-  verbs raise, and without `-device cpu` it wants CUDA;
+- the CLI parses darknet's flags, `-gpus 0,1` trains on two ranks to the
+  one-device result (parameters within 1e-3, seen counting the global
+  batch), the verbs still to port raise, and without `-device cpu` it
+  wants CUDA;
 - the copied `yolo_data_prep` writes byte-identical label, list, .names
   and .data files to the JAX one on a synthetic SIXD tree.
 """
@@ -231,9 +233,17 @@ def test_cli_flags(tiny_dataset, capsys):
     assert [i for i, _ in _log(capsys.readouterr().out)] == [0, 1, 2]
     assert os.path.exists(d["backup"] / "net_final.weights")
     assert darknet_cli.read_data_cfg(d["data"])["classes"] == "1"
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        darknet_cli.main(["detector", "train", d["data"], d["cfg"],
-                          "-gpus", "0,1", "-device", "cpu"])
+    # two ranks (data parallel, batch 4 split 2 + 2) give what one gives
+    two = darknet_cli.main(["detector", "train", d["data"], d["cfg"],
+                            "-clear", "-gpus", "0,1", "-resize_buckets", "1",
+                            "-precision", "float32", "-device", "cpu"])
+    assert isinstance(two, port_yolo.Darknet) and not two.training
+    for (k, a), b in zip(model.state_dict().items(),
+                         two.state_dict().values()):
+        np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=0, atol=1e-3,
+                                   err_msg=k)
+    with open(d["backup"] / "net_final.weights", "rb") as f:
+        assert np.frombuffer(f.read(16), np.int32)[3] == 3 * 4   # seen
     # the detector verbs run (an explicit weights path must exist); the
     # verbs still to port name their ROADMAP slice
     with pytest.raises(FileNotFoundError, match="not found"):
